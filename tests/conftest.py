@@ -37,6 +37,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy XLA recompiles (full-UNet parity, e2e training)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without them"
+    )
 
 
 @pytest.fixture
