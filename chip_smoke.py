@@ -4,17 +4,25 @@
     python3 chip_smoke.py
 
 From the root of a checkout, with one CUDA card. It builds the port's CUDA
-kernels from the sources in the checkout, holds every kernel against its plain
-PyTorch version on the card, holds the full-width fp32 UNet on the card against
-the CPU, then drives the main path through the user's entry points: the
-full-width ``sdf_chd8bar`` preset in bf16 with seeded random weights, chord
-one-hots -> chord encoder -> ``InferenceSession.generate`` at DDIM-50, CFG 5,
-for requests of batch 1, 16, 64 and 64. Every phase raises on failure and the
-script then exits non-zero without a result. It imports nothing of JAX or of
-the JAX package.
+kernels from the sources in the checkout (one ``nvcc`` per source, in
+parallel), holds every kernel against its plain PyTorch version on the card
+(with a planted fault that must fail each limit), holds the full-width fp32
+UNet eval and one full-width fp32 train step on the card against the CPU, then
+drives the two main paths through the user's entry points, each with the
+kernels' launch counts set to 0 just before it and read just after:
+
+- sampling: the full-width ``sdf_chd8bar`` preset in bf16 with seeded random
+  weights, chord one-hots -> chord encoder -> ``InferenceSession.generate`` at
+  DDIM-50, CFG 5, for requests of batch 1, 16, 64 and 64;
+- training: ``polyffusion_tpu_torch.main`` on synthetic songs with a seeded
+  random ``chd8bar.pt``, the same preset in bf16 at its batch 16, 30 steps with
+  one validation and one checkpoint, then ``--resume`` for 6 more.
+
+Every phase raises on failure and the script then exits non-zero without a
+result. It imports nothing of JAX or of the JAX package.
 
 Output: progress lines; the card's name and power limit; a ``{"kernels": [...]}``
-JSON line (per kernel: launches on the main path, max error, kernel, plain,
+JSON line (per kernel: launches on the main paths, max error, kernel, plain,
 library and bound times); and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -42,8 +50,38 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 BF16_ATOL, BF16_RTOL = 2e-3, 2**-6
 FP32_ATOL, FP32_RTOL = 1e-5, 0.0  # reassociation of the online softmax
 UNET_ATOL, UNET_RTOL = 2e-4, 1e-4  # the UNet tolerance of tests/test_unet_parity.py:68
+# Attention backward against its plain version, elementwise on dq, dk, dv.
+# bf16: both round Pc and dS to bf16 before their products and the outputs to
+# bf16, so they may differ by an output ulp (<= 2^-7 |want|), rtol allows two;
+# atol covers outputs near zero, where a dS element whose fp32 value lies near
+# a rounding boundary and rounds the other way moves a sum of T products (the
+# worst such reading on the card: 0.00195 at |want| ~ 0.06, T = 256).
+# fp32: the order of the fp32 sums only.
+BWD_BF16_ATOL, BWD_BF16_RTOL = 2e-3, 2**-6
+BWD_FP32_ATOL, BWD_FP32_RTOL = 1e-6, 0.0
+# GroupNorm backward against its plain version: dx elementwise (bf16: two
+# output ulps and a little near zero; fp32: the order of the group sums);
+# dgamma and dbeta are fp32 sums over B*H*W elements taken in another order.
+GN_BF16_ATOL, GN_BF16_RTOL = 1e-4, 2**-6
+GN_FP32_ATOL, GN_FP32_RTOL = 1e-6, 1e-6
+GN_PARAM_ATOL, GN_PARAM_RTOL = 1e-3, 1e-5
+# One fp32 train step, card against CPU: the loss and the gradients' norm to
+# fp32 reassociation over the whole UNet; each parameter's gradient in
+# relative norm (cuDNN's and the CPU's convolutions sum in other orders); the
+# parameters after one Adam step of lr 5e-5, which moves an element by
+# lr g / (|g| + 1e-8): where a gradient is within a few 1e-8 of zero, rounding
+# decides the update, anywhere in (-lr, lr), so the parameters agree within
+# 2 lr everywhere and within 1e-7 in all but 0.1 % of the elements.
+STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-4, 1e-4
+STEP_PARAM_TIGHT, STEP_PARAM_SHARE = 1e-7, 1e-3
 MAIN_BATCHES = (1, 16, 64, 64)
 LAUNCHES_PER_REQUEST = 550  # 11 self-attention sites x 50 DDIM steps, CFG in one double batch
+# the training path: the full-width preset in bf16 at its batch 16
+TRAIN_SONGS, TRAIN_STEPS, RESUME_STEPS, LOG_EVERY = 40, 30, 6, 10
+# per step: 11 self-attention sites forward (kernel 1) and backward (kernel 2);
+# 56 GroupNorm32 backwards (kernel 6): 22 ResBlocks x 2, 11 SpatialTransformer
+# norms and the output norm (counted from the modules by count_sites)
+ATTENTION_SITES, GROUPNORM_SITES = 11, 56
 
 
 def log(msg: str) -> None:
@@ -79,6 +117,16 @@ def time_in_turns(fns: dict, rounds: int = 7, inner: int = 3) -> dict:
 def attention_bound(b, t, h, d, dtype_name, itemsize):
     ops = 4 * b * h * t * t * d
     nbytes = 4 * b * t * h * d * itemsize
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bwd_bound(b, t, h, d, dtype_name, itemsize):
+    """Five T x T x D products per (batch, head); q, k, v, dO read once and
+    dq, dk, dv written once."""
+    ops = 5 * 2 * b * h * t * t * d
+    nbytes = 7 * b * t * h * d * itemsize
     t_ops = ops / PEAK_OPS_PER_S[dtype_name] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -151,6 +199,154 @@ def check_packed_attention():
     return rows
 
 
+def check_attention_bwd():
+    """Backward kernel against its plain version (and SDPA's backward as a
+    yardstick) at the train step's shapes. At each shape the limit is also
+    shown to catch a planted fault: the plain backward with the last key tile
+    dropped (dk and dv of the dropped keys zero)."""
+    import torch
+    import torch.nn.functional as F
+
+    from polyffusion_tpu_torch.ops.fused_attention import (
+        TILE,
+        packed_attention_bwd,
+        packed_attention_bwd_reference,
+    )
+
+    cases = [  # (B, T, H, D, dtype, atol, rtol)
+        (16, 1024, 4, 64, torch.bfloat16, BWD_BF16_ATOL, BWD_BF16_RTOL),
+        (16, 256, 4, 64, torch.bfloat16, BWD_BF16_ATOL, BWD_BF16_RTOL),
+        (4, 1024, 4, 64, torch.float32, BWD_FP32_ATOL, BWD_FP32_RTOL),
+        (4, 256, 4, 64, torch.float32, BWD_FP32_ATOL, BWD_FP32_RTOL),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for b, t, h, d, dtype, atol, rtol in cases:
+        q, k, v, do = (torch.randn(b, t, h * d, device="cuda", generator=g).to(dtype)
+                       for _ in range(4))
+        scale = d**-0.5
+        got = packed_attention_bwd(q, k, v, do, scale, h)
+        torch.cuda.synchronize()
+        want = packed_attention_bwd_reference(q, k, v, do, scale, h)
+        err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
+        ratio = max(limit_ratio(x, y, atol, rtol) for x, y in zip(got, want))
+        fq, fk, fv = packed_attention_bwd_reference(q, k[:, :-TILE], v[:, :-TILE], do, scale, h)
+        pad = torch.zeros_like(k[:, -TILE:])
+        fault = (fq, torch.cat([fk, pad], 1), torch.cat([fv, pad], 1))
+        fault_ratio = max(limit_ratio(x, y, atol, rtol) for x, y in zip(fault, want))
+        del fault, fq, fk, fv
+        if not ratio <= 1.0:
+            raise AssertionError(f"packed_attention_bwd B={b} T={t} {dtype}: max_abs_err {err}, "
+                                 f"{ratio:.3g} x the limit (atol {atol}, rtol {rtol})")
+        if not fault_ratio > 1.0:
+            raise AssertionError(f"the limit at B={b} T={t} {dtype} does not catch a dropped "
+                                 f"key tile ({fault_ratio:.3g} x the limit)")
+        leaves = [x.view(b, t, h, d).transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        dov = do.view(b, t, h, d).transpose(1, 2)
+        ms = time_in_turns({
+            "kernel": lambda: packed_attention_bwd(q, k, v, do, scale, h),
+            "plain": lambda: packed_attention_bwd_reference(q, k, v, do, scale, h),
+            "library": lambda: torch.autograd.grad(out, leaves, dov, retain_graph=True),
+        })
+        dname = str(dtype).split(".")[1]
+        bound, bound_by = attention_bwd_bound(b, t, h, d, dname, q.element_size())
+        row = dict(shape=f"B={b} T={t} H={h} D={d} {dname}", max_abs_err=err, atol=atol,
+                   rtol=rtol, limit_ratio=ratio, fault_limit_ratio=fault_ratio,
+                   want_abs_max=max(y.float().abs().max().item() for y in want),
+                   ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+                   bound_ms=bound, bound_by=bound_by)
+        log(f"[kernel] packed_attention_bwd {row['shape']}: max_abs_err {err:.3g} "
+            f"(|want| max {row['want_abs_max']:.3g}), {ratio:.3g} x the limit (atol {atol}, "
+            f"rtol {rtol:.3g}; one dropped key tile: {fault_ratio:.3g} x)  "
+            f"kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
+            f"sdpa bwd {ms['library']:.4f} ms  bound {bound:.4f} ms ({bound_by})")
+        rows.append(row)
+        del q, k, v, do, got, want, leaves, out, dov
+    return rows
+
+
+def check_gn_bwd():
+    """GroupNorm backward kernel against its plain version (and the backward of
+    ``F.group_norm`` as a yardstick) at shapes of the train step. At each shape
+    the limit is also shown to catch a planted fault: the plain dx with the
+    S2 term left out."""
+    import torch
+    import torch.nn.functional as F
+
+    from polyffusion_tpu_torch.ops.gn_bwd import gn_bwd_reference, gn_primal, group_norm_bwd
+
+    cases = [  # (B, C, H, W, dtype, atol, rtol)
+        (16, 64, 128, 128, torch.bfloat16, GN_BF16_ATOL, GN_BF16_RTOL),
+        (16, 192, 128, 128, torch.bfloat16, GN_BF16_ATOL, GN_BF16_RTOL),
+        (16, 256, 32, 32, torch.bfloat16, GN_BF16_ATOL, GN_BF16_RTOL),
+        (16, 512, 16, 16, torch.bfloat16, GN_BF16_ATOL, GN_BF16_RTOL),
+        (4, 128, 64, 64, torch.float32, GN_FP32_ATOL, GN_FP32_RTOL),
+    ]
+    groups, eps = 32, 1e-5
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for b, c, hh, ww, dtype, atol, rtol in cases:
+        x = (torch.randn(b, c, hh, ww, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+        dy = torch.randn(b, c, hh, ww, device="cuda", generator=g).to(dtype)
+        gamma = torch.randn(c, device="cuda", generator=g) * 0.5 + 1.0
+        beta = torch.randn(c, device="cuda", generator=g) * 0.1
+        _, mean_c, inv_c = gn_primal(x, gamma, beta, groups, eps)
+        got = group_norm_bwd(x, dy, mean_c, inv_c, gamma, groups)
+        torch.cuda.synchronize()
+        want = gn_bwd_reference(x, dy, mean_c, inv_c, gamma, groups)
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        ratio = limit_ratio(got[0], want[0], atol, rtol)
+        param_err = max((x_ - y).abs().max().item() for x_, y in zip(got[1:], want[1:]))
+        param_ratio = max(limit_ratio(x_, y, GN_PARAM_ATOL, GN_PARAM_RTOL)
+                          for x_, y in zip(got[1:], want[1:]))
+        fault_ratio = limit_ratio(gn_dx_without_s2(x, dy, mean_c, inv_c, gamma, groups),
+                                  want[0], atol, rtol)
+        if not (ratio <= 1.0 and param_ratio <= 1.0):
+            raise AssertionError(f"gn_bwd B={b} C={c} H={hh} W={ww} {dtype}: dx max_abs_err "
+                                 f"{err}, {ratio:.3g} x the limit; dgamma/dbeta {param_ratio:.3g} x")
+        if not fault_ratio > 1.0:
+            raise AssertionError(f"the limit at C={c} H={hh} {dtype} does not catch a dx without "
+                                 f"S2 ({fault_ratio:.3g} x the limit)")
+        xl = x.detach().requires_grad_()
+        wl = gamma.to(dtype).requires_grad_()
+        bl = beta.to(dtype).requires_grad_()
+        y = F.group_norm(xl, groups, wl, bl, eps)
+        ms = time_in_turns({
+            "kernel": lambda: group_norm_bwd(x, dy, mean_c, inv_c, gamma, groups),
+            "plain": lambda: gn_bwd_reference(x, dy, mean_c, inv_c, gamma, groups),
+            "library": lambda: torch.autograd.grad(y, (xl, wl, bl), dy, retain_graph=True),
+        })
+        dname = str(dtype).split(".")[1]
+        bound = 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        row = dict(shape=f"B={b} C={c} H={hh} W={ww} {dname}", max_abs_err=err, atol=atol,
+                   rtol=rtol, limit_ratio=ratio, fault_limit_ratio=fault_ratio,
+                   param_max_abs_err=param_err, param_limit_ratio=param_ratio,
+                   want_abs_max=want[0].float().abs().max().item(),
+                   ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+                   bound_ms=bound, bound_by="bytes")
+        log(f"[kernel] gn_bwd {row['shape']}: dx max_abs_err {err:.3g} (|want| max "
+            f"{row['want_abs_max']:.3g}), {ratio:.3g} x the limit (atol {atol}, rtol {rtol:.3g}; "
+            f"without S2: {fault_ratio:.3g} x); dgamma/dbeta max_abs_err {param_err:.3g}, "
+            f"{param_ratio:.3g} x (atol {GN_PARAM_ATOL}, rtol {GN_PARAM_RTOL})  "
+            f"kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
+            f"F.group_norm bwd {ms['library']:.4f} ms  bound {bound:.4f} ms (bytes)")
+        rows.append(row)
+        del x, dy, got, want, xl, y
+    return rows
+
+
+def gn_dx_without_s2(x, dy, mean_c, inv_c, gamma, groups):
+    """The plain dx with its S2 term dropped: the planted fault of ``check_gn_bwd``."""
+    b, c = x.shape[:2]
+    cg = c // groups
+    inv4 = inv_c[:, :, None, None]
+    dyg = dy.float() * gamma[None, :, None, None]
+    s1 = dyg.sum(dim=(2, 3)).view(b, groups, cg).sum(-1, keepdim=True) / (x[0, 0].numel() * cg)
+    s1 = s1.expand(b, groups, cg).reshape(b, c)[:, :, None, None]
+    return (inv4 * (dyg - s1)).to(x.dtype)
+
+
 def full_cfg(bf16: bool):
     from polyffusion_tpu_torch.config import load_params
 
@@ -159,14 +355,22 @@ def full_cfg(bf16: bool):
     return cfg
 
 
-def make_task(cfg, device, seed):
+def random_chord_encoder(cfg, seed):
     import torch
 
-    from polyffusion_tpu_torch.models import ChordEncoder
-    from polyffusion_tpu_torch.tasks import SDFTask
+    from polyffusion_tpu_torch.models import ChordEncoder, init_weights_
 
     enc = ChordEncoder(cfg.chd_input_dim, cfg.chd_hidden_dim, cfg.chd_z_dim)
-    return SDFTask(cfg, enc, device=device, generator=torch.Generator().manual_seed(seed))
+    return init_weights_(enc, torch.Generator().manual_seed(seed + 1000))
+
+
+def make_task(cfg, device, seed, training=False):
+    import torch
+
+    from polyffusion_tpu_torch.tasks import SDFTask
+
+    return SDFTask(cfg, random_chord_encoder(cfg, seed), device=device,
+                   generator=torch.Generator().manual_seed(seed), training=training)
 
 
 def check_unet_against_cpu():
@@ -197,6 +401,157 @@ def check_unet_against_cpu():
         f"card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
     if not ok or not torch.isfinite(got).all():
         raise AssertionError("full-width UNet on the card disagrees with the CPU")
+
+
+
+def check_train_step_against_cpu():
+    """One full-width fp32 train step at batch 2 on the card (with the kernels)
+    against the CPU (with their plain versions): same weights, batch, t and
+    noise; the loss, the gradients and their norm, and the updated parameters."""
+    import torch
+
+    from polyffusion_tpu_torch.tasks.sdf import StepNoise
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+
+    cfg = full_cfg(bf16=False)
+    rng = np.random.default_rng(2)
+    x0 = torch.from_numpy((rng.random((2, 2, 128, 128)) > 0.97).astype(np.uint8))
+    chords = torch.from_numpy(random_chords(rng, 2))
+    t = torch.tensor([37, 802])
+    noise = torch.from_numpy(rng.standard_normal((2, 2, 128, 128)).astype(np.float32))
+    out = {}
+    for device in ("cuda", "cpu"):
+        task = make_task(cfg, device, seed=3, training=True)
+        state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm)
+        batch = (x0.to(device), None, chords.to(device), None)
+        t0 = time.perf_counter()
+        metrics = make_train_step(task)(state, batch, seed=0, noise=StepNoise(
+            t.to(device), noise.to(device), torch.tensor(False, device=device)))
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        params = {k: v.detach().cpu() for k, v in state.params().items()}
+        grads = {k: v.grad.cpu() for k, v in state.params().items()}  # clipped: norm < max here
+        out[device] = (loss, norm, params, grads, time.perf_counter() - t0)
+        del task, state
+    (loss, norm, got, got_g, t_gpu), (want_loss, want_norm, want, want_g, t_cpu) = out["cuda"], out["cpu"]
+    lr = cfg.learning_rate
+    loss_err, norm_err = abs(loss - want_loss) / abs(want_loss), abs(norm - want_norm) / want_norm
+    grad_ratio, worst = 0.0, ""
+    for k, w in want_g.items():  # per tensor: |dg| <= rtol |g| + 1e-9 (exact zeros stay zero)
+        r = ((got_g[k] - w).norm() / (STEP_GRAD_RTOL * w.norm() + 1e-9)).item()
+        if r > grad_ratio:
+            grad_ratio, worst = r, k
+    err = torch.cat([(got[k] - w).abs().flatten() for k, w in want.items()])
+    share = (err > STEP_PARAM_TIGHT).float().mean().item()
+    log(f"[train] full-width fp32 step (B=2) card vs CPU: loss {loss:.7g} vs {want_loss:.7g} "
+        f"(rel {loss_err:.3g}, limit {STEP_LOSS_RTOL}), grad_norm {norm:.7g} vs {want_norm:.7g} "
+        f"(rel {norm_err:.3g}, limit {STEP_NORM_RTOL}); gradients per tensor {grad_ratio:.3g} x "
+        f"the limit (rel {STEP_GRAD_RTOL} in norm; worst {worst}); params max_abs_err "
+        f"{err.max().item():.3g} (limit {2 * lr:.3g} = 2 lr), share above {STEP_PARAM_TIGHT}: "
+        f"{share:.3g} (limit {STEP_PARAM_SHARE}); card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
+    if not (loss_err <= STEP_LOSS_RTOL and norm_err <= STEP_NORM_RTOL and grad_ratio <= 1.0
+            and err.max().item() <= 2 * lr and share <= STEP_PARAM_SHARE):
+        raise AssertionError("the full-width fp32 train step on the card disagrees with the CPU")
+
+
+def count_sites(unet):
+    """(self-attention sites, GroupNorm32 sites) of a UNet, from its modules."""
+    from polyffusion_tpu_torch.models.unet import GroupNorm32, SpatialTransformer
+
+    mods = list(unet.modules())
+    attn = sum(len(m.transformer_blocks) for m in mods if isinstance(m, SpatialTransformer))
+    return attn, sum(isinstance(m, GroupNorm32) for m in mods)
+
+
+def write_songs(data_dir, n, seed):
+    """Synthetic three-track 24-bar songs with chords and a downbeat every bar
+    (the idea of the JAX package's tests/synth.py), written with the port's
+    ``write_song_npz``."""
+    from polyffusion_tpu_torch.data import write_song_npz
+
+    os.makedirs(data_dir)
+    for i in range(n):
+        rng = np.random.default_rng(seed + i)
+        n_beats = 24 * 4
+        n_bins = n_beats * 4
+        tracks = []
+        for t in range(3):
+            m = int(rng.integers(40, 80))
+            onsets = np.sort(rng.integers(0, n_bins - 8, m))
+            tracks.append(np.stack([onsets, rng.integers(36 + 12 * t, 72 + 12 * t, m),
+                                    rng.integers(1, 8, m), rng.integers(60, 100, m),
+                                    np.zeros(m, np.int64)], 1))
+        chord = np.zeros((n_beats, 14), np.int32)
+        chord[:, 0] = rng.integers(0, 12, n_beats)
+        chord[:, 1:13] = rng.integers(0, 2, (n_beats, 12))
+        chord[:, 13] = chord[:, 0]
+        db_pos = np.arange(0, n_bins, 16)
+        write_song_npz(os.path.join(data_dir, f"song{i:03d}.npz"), tracks, chord, db_pos,
+                       db_pos + 128 <= n_bins, n_beats=n_beats)
+
+
+def drive_training_path(counters):
+    """``python -m polyffusion_tpu_torch.main`` for the full-width bf16
+    ``sdf_chd8bar`` preset at its batch 16: TRAIN_STEPS steps, one validation
+    and one checkpoint, then ``--resume`` for RESUME_STEPS more. Returns the
+    launches of each kernel over both runs."""
+    import json as json_
+
+    import torch
+
+    from polyffusion_tpu_torch.data import BatchLoader, SegmentDataset
+    from polyffusion_tpu_torch.main import main as train_main
+
+    cfg = full_cfg(bf16=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrained, data, run = (os.path.join(tmp, d) for d in ("pretrained", "songs", "run"))
+        os.makedirs(pretrained)
+        enc = random_chord_encoder(cfg, seed=5)
+        # the reference chord VAE's layout: a learner checkpoint, encoder under chord_enc.
+        torch.save({"model": {f"chord_enc.{k}": v for k, v in enc.state_dict().items()}},
+                   os.path.join(pretrained, "chd8bar.pt"))
+        write_songs(data, TRAIN_SONGS, seed=100)
+        _, val_ds = SegmentDataset.train_val_from_dir(data, 0.9)
+        val_batches = len(BatchLoader(val_ds, cfg.batch_size))
+        args = ["--model", "sdf_chd8bar", "--output_dir", run, "--data_dir", data,
+                "--pretrained_dir", pretrained, "--log_every", str(LOG_EVERY), "--seed", "0"]
+        totals = {name: 0 for name in counters}
+        for steps, extra in ((TRAIN_STEPS, []), (RESUME_STEPS, ["--resume"])):
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = train_main(args + ["--max_steps", str(TRAIN_STEPS + (steps if extra else 0))] + extra)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = {name: fn.launches for name, fn in counters.items()}
+            want = {"packed_attention": ATTENTION_SITES * (steps + val_batches),
+                    "packed_attention_bwd": ATTENTION_SITES * steps,
+                    "gn_bwd": GROUPNORM_SITES * steps}
+            log(f"[train] {'resumed ' if extra else ''}run: {steps} steps and {val_batches} val "
+                f"batches in {secs:.3f} s (with setup), launches {got}")
+            if got != want:
+                raise AssertionError(f"expected launches {want}, got {got}")
+            if state.step != TRAIN_STEPS + (steps if extra else 0):
+                raise AssertionError(f"run ended at step {state.step}")
+            for name in totals:
+                totals[name] += got[name]
+        records = [json_.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+        train = [r for r in records if "train/loss" in r]
+        val = [r for r in records if "val/loss" in r]
+        losses = [r["train/loss"] for r in train] + [r["val/loss"] for r in val]
+        if not (train and len(val) == 2 and np.isfinite(losses).all()):
+            raise AssertionError(f"bad metrics: {records}")
+        if [r["step"] for r in val] != [TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS]:
+            raise AssertionError(f"validation steps {[r['step'] for r in val]}: the resumed run "
+                                 f"did not start at step {TRAIN_STEPS}")
+        if not os.path.getsize(os.path.join(run, "chkpts", "last.pt")):
+            raise AssertionError("no checkpoint written")
+        warm = train[-1]["steps_per_sec"]
+        log(f"[train] losses {[round(x, 5) for x in losses]}; warm window (steps "
+            f"{train[-1]['step'] - LOG_EVERY + 1}-{train[-1]['step']}): {1e3 / warm:.3f} ms/step, "
+            f"{warm:.3f} steps/s (host clock, metrics.jsonl); checkpoint "
+            f"{os.path.getsize(os.path.join(run, 'chkpts', 'last.pt')) / 2**20:.1f} MiB")
+    return totals
 
 
 def random_chords(rng, b):
@@ -258,7 +613,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from polyffusion_tpu_torch.device import tf32
     from polyffusion_tpu_torch.ops import _build
-    from polyffusion_tpu_torch.ops.fused_attention import packed_self_attention
+    from polyffusion_tpu_torch.ops.fused_attention import packed_attention_bwd, packed_self_attention
+    from polyffusion_tpu_torch.ops.gn_bwd import group_norm_bwd
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -278,29 +634,60 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     rows = check_packed_attention()
+    bwd_rows = check_attention_bwd()
+    gn_rows = check_gn_bwd()
     check_unet_against_cpu()
+    check_train_step_against_cpu()
+    sites = count_sites(make_task(full_cfg(bf16=True), "cpu", seed=0).unet)
+    if sites != (ATTENTION_SITES, GROUPNORM_SITES):
+        raise AssertionError(f"the full-width UNet has {sites} (attention, GroupNorm) sites")
 
+    # the two main paths: sampling, then training
     packed_self_attention.launches = 0
-    launches = drive_main_path(packed_self_attention)
-    if launches == 0:
+    sampling = drive_main_path(packed_self_attention)
+    if sampling == 0:
         raise AssertionError("the main path never launched packed_attention")
+    counters = {"packed_attention": packed_self_attention,
+                "packed_attention_bwd": packed_attention_bwd, "gn_bwd": group_norm_bwd}
+    training = drive_training_path(counters)
+    if min(training.values()) == 0:
+        raise AssertionError(f"the training path did not launch every kernel: {training}")
 
-    main_row = rows[0]  # B=128 T=1024 bf16: the main path's dominant shape
-    kernels = [{
-        "name": "packed_attention",
-        "route": "cuda",
-        "source": "polyffusion_tpu_torch/ops/csrc/packed_attention.cu",
-        "replaces": "polyffusion_tpu/ops/fused_attention.py:53",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows[:2]),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "at": main_row["shape"],
-        "shapes": rows,
-    }]
+    def entry(name, source, replaces, launches, rows, main_row, errs_of):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in errs_of),
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "at": main_row["shape"],
+            "shapes": rows,
+        }
+
+    bf16 = [r for r in bwd_rows if r["shape"].endswith("bfloat16")]
+    gn_bf16 = [r for r in gn_rows if r["shape"].endswith("bfloat16")]
+    kernels = [
+        # B=128 T=1024 bf16: the sampling path's dominant shape
+        entry("packed_attention", "polyffusion_tpu_torch/ops/csrc/packed_attention.cu",
+              "polyffusion_tpu/ops/fused_attention.py:53",
+              {"sampling": sampling, "training": training["packed_attention"]},
+              rows, rows[0], rows[:2]),
+        # B=16 T=1024 bf16: the train step's dominant shape
+        entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
+              "polyffusion_tpu/ops/fused_attention.py:111",
+              {"training": training["packed_attention_bwd"]}, bwd_rows, bf16[0], bf16),
+        # B=16 C=64 128x128 bf16: the largest GroupNorm of the train step
+        entry("gn_bwd", "polyffusion_tpu_torch/ops/csrc/gn_bwd.cu",
+              "polyffusion_tpu/ops/gn_bwd.py:66",
+              {"training": training["gn_bwd"]}, gn_rows, gn_bf16[0], gn_bf16),
+    ]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

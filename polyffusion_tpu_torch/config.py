@@ -1,10 +1,12 @@
-"""Model presets: ``params/<model>.yaml`` into an attribute dict (a copy of the
-JAX package's ``config.py:Params``/``load_params`` over the port's own presets)."""
+"""Model presets: ``params/<model>.yaml`` into an attribute dict, and the run
+directory's ``params.yaml`` (a copy of the JAX package's ``config.py``:
+``Params``, ``load_params``, ``save_params``, ``params_differ``, over the port's
+own presets)."""
 
 from __future__ import annotations
 
 import os
-from typing import Any
+from typing import Any, Dict
 
 import yaml
 
@@ -31,3 +33,17 @@ def load_params(path_or_model: str) -> Params:
         path = os.path.join(PARAMS_DIR, f"{path_or_model}.yaml")
     with open(path) as f:
         return Params(yaml.safe_load(f))
+
+
+def save_params(params: Dict, path: str) -> None:
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(params), f, sort_keys=False)
+
+
+def params_differ(a: Dict, b: Dict) -> list:
+    """Return list of (key, a_val, b_val) that differ (for resume drift warnings)."""
+    diffs = []
+    for k in sorted(set(a) | set(b)):
+        if a.get(k) != b.get(k):
+            diffs.append((k, a.get(k), b.get(k)))
+    return diffs

@@ -1,0 +1,104 @@
+"""Training CLI (counterpart of ``polyffusion_tpu/main.py``, sdf presets, one GPU):
+
+    python -m polyffusion_tpu_torch.main --model sdf_chd8bar --output_dir result/x \\
+        --data_dir <npz dir> --pretrained_dir <dir with chd8bar.pt>
+
+Model presets come from ``polyffusion_tpu_torch/params/*.yaml``; the run
+directory gets a ``params.yaml`` copy, ``torch.save`` checkpoints under
+``chkpts/`` and ``metrics.jsonl``. Training runs on the GPU unless
+``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from datetime import datetime
+
+import torch
+import yaml
+
+from .config import load_params
+from .data import SegmentDataset, make_loaders
+from .device import DeviceLike
+from .models.encoders import build_frozen_encoders
+from .tasks import SDFTask
+from .train import Trainer
+
+
+def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 0) -> SDFTask:
+    """The task of ``cfg`` for training: UNet weights fp32 from ``seed``, the
+    frozen encoders from ``pretrained_dir``."""
+    if not cfg["model_name"].startswith("sdf"):
+        raise NotImplementedError(f"{cfg['model_name']}: the port trains sdf presets only")
+    encoders = build_frozen_encoders(cfg, pretrained_dir)
+    return SDFTask(cfg, encoders.get("chord_enc"), device=device,
+                   generator=torch.Generator().manual_seed(seed), training=True)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="polyffusion_tpu_torch training")
+    p.add_argument("--model", required=True, help="params preset name (see params/)")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--data_dir", required=True, help="directory of song .npz files")
+    p.add_argument("--split_file", default=None, help="pickled (train, val) split")
+    p.add_argument("--pop909_use_track", default="0,1,2", help="tracks for prmat2c")
+    p.add_argument("--pretrained_dir", default=None,
+                   help="frozen encoder checkpoints (chd8bar.pt or chd8bar.npz)")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None, help="override preset batch size")
+    p.add_argument("--log_every", type=int, default=100)
+    p.add_argument("--save_every", type=int, default=1,
+                   help="checkpoint every N epochs (final epoch always saves)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume", action="store_true", help="resume from output_dir/chkpts")
+    p.add_argument("--fresh", action="store_true", help="force a new timestamped subdir")
+    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument(
+        "--set",
+        action="append",
+        default=[],
+        metavar="KEY=VALUE",
+        help="override any preset key (YAML-parsed value; repeatable), e.g. "
+        "--set channels=32 --set 'channel_multipliers=[1,2]' — the run dir's "
+        "params.yaml records the overridden config",
+    )
+    args = p.parse_args(argv)
+
+    cfg = load_params(args.model)
+    for kv in args.set:
+        key, sep, val = kv.partition("=")
+        if not sep:
+            raise SystemExit(f"--set expects KEY=VALUE, got {kv!r}")
+        cfg[key.strip()] = yaml.safe_load(val)
+    if args.batch_size:
+        cfg["batch_size"] = args.batch_size
+
+    output_dir = args.output_dir
+    has_ckpt = os.path.isdir(os.path.join(output_dir, "chkpts"))
+    if args.fresh or (has_ckpt and not args.resume):
+        # a new timestamped dir unless --resume (the reference prompts instead)
+        output_dir = os.path.join(args.output_dir, datetime.now().strftime("%y%m%d_%H%M%S"))
+
+    use_track = [int(t) for t in args.pop909_use_track.split(",")]
+    if args.split_file:
+        train_ds, val_ds = SegmentDataset.train_val_from_split(
+            args.data_dir, args.split_file, use_track
+        )
+    else:
+        train_ds, val_ds = SegmentDataset.train_val_from_dir(args.data_dir, 0.9, use_track)
+
+    task = build_task(cfg, args.pretrained_dir, device=args.device, seed=args.seed)
+    train_dl, val_dl = make_loaders(
+        train_ds, val_ds, cfg["batch_size"], task.device, seed=args.seed,
+        used_fields=task.used_batch_fields,
+    )
+    trainer = Trainer(task, cfg, output_dir, max_steps=args.max_steps,
+                      log_every=args.log_every, save_every=args.save_every)
+    print(f"[train] model={args.model} device={task.device} batch={cfg['batch_size']} "
+          f"out={output_dir}")
+    return trainer.fit(train_dl, val_dl, seed=args.seed, resume=args.resume)
+
+
+if __name__ == "__main__":
+    main()

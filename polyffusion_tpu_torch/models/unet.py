@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multihead_attention
+from ..ops.gn_bwd import group_norm_affine
 
 
 def timestep_embedding(time_steps: torch.Tensor, channels: int, max_period: int = 10000) -> torch.Tensor:
@@ -39,7 +40,8 @@ class GroupNorm32(nn.Module):
     """GroupNorm with one-pass fp32 statistics (E[x^2] - E[x]^2) whose per-channel
     affine is folded in fp32 and applied in the activation dtype, as the JAX
     package's ``FP32GroupNorm`` does (``nn.GroupNorm`` is two-pass and applies in
-    fp32, so it would round differently in bf16)."""
+    fp32, so it would round differently in bf16). Its backward is the GroupNorm
+    backward kernel on a CUDA tensor (``ops/gn_bwd.py``)."""
 
     GROUPS = 32  # the reference's normalization(32)
 
@@ -52,21 +54,7 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c = x.shape[:2]
-        g = self.GROUPS
-        x32 = x.float()
-        s1 = x32.sum(dim=(2, 3))
-        s2 = (x32 * x32).sum(dim=(2, 3))
-        n = x[0, 0].numel() * (c // g)
-        mean = s1.view(b, g, c // g).sum(-1) / n
-        meansq = s2.view(b, g, c // g).sum(-1) / n
-        inv = torch.rsqrt(torch.clamp(meansq - mean * mean, min=0.0) + self.eps)
-        inv_c = inv.repeat_interleave(c // g, dim=1)
-        mean_c = mean.repeat_interleave(c // g, dim=1)
-        scale = self.weight.float()
-        a = (inv_c * scale).to(x.dtype)
-        off = (self.bias.float() - mean_c * inv_c * scale).to(x.dtype)
-        return x * a[:, :, None, None] + off[:, :, None, None]
+        return group_norm_affine(x, self.weight, self.bias, self.GROUPS, self.eps)
 
 
 def _conv3x3(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>-<hash>.so``, where the hash
-is that of the source: a library is never loaded for a source it was not built
-from. Nothing here runs at import time, so the package imports on machines
-without ``nvcc`` or a GPU.
+is that of the source and of the headers in ``csrc/``: a library is never
+loaded for a source it was not built from. Nothing here runs at import time,
+so the package imports on machines without ``nvcc`` or a GPU.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("packed_attention",)
+SOURCES = ("packed_attention", "packed_attention_bwd", "gn_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,9 +38,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

@@ -33,65 +33,20 @@
 // kernel does (fused_attention.py:73-75); the row sum that divides O at the end
 // is the fp32 sum of the unrounded values.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;  // queries per block
-constexpr int kBlockK = 64;  // keys per streamed tile
+constexpr int kBlockQ = kTile;  // queries per block
+constexpr int kBlockK = kTile;  // keys per streamed tile
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync)
 
-using bf16 = __nv_bfloat16;
 constexpr int kWarpsTc = kBlockQ / 16;
 constexpr int kThreadsTc = 32 * kWarpsTc;
-
-// Copies a (64, D) bf16 tile whose rows are row_stride elements apart into
-// shared memory, rows ld elements apart, 16 bytes per thread and load.
-template <int D>
-__device__ __forceinline__ void copy_tile_bf16(const bf16* __restrict__ src, long row_stride,
-                                               bf16* dst, int ld) {
-  constexpr int kChunks = kBlockQ * D / 8;
-  for (int c = threadIdx.x; c < kChunks; c += kThreadsTc) {
-    const int r = c / (D / 8);
-    const int d = (c % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + d) =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + d);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 bf16 matrices from shared memory; lane l gives the
-// address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
@@ -120,7 +75,7 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
                          static_cast<long>(blockIdx.y) * D;
   const int q0 = blockIdx.x * kBlockQ;
 
-  copy_tile_bf16<D>(q + head_base + q0 * row_stride, row_stride, qs, kLd);
+  copy_tile_bf16<D, kThreadsTc>(q + head_base + q0 * row_stride, row_stride, qs, kLd);
   __syncthreads();
   uint32_t qa[kKs][4];  // this warp's 16 query rows as A fragments, kept for the whole loop
 #pragma unroll
@@ -139,8 +94,8 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   float l[2] = {0.f, 0.f};
 
   for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-    copy_tile_bf16<D>(k + head_base + k0 * row_stride, row_stride, ks, kLd);
-    copy_tile_bf16<D>(v + head_base + k0 * row_stride, row_stride, vs, kLd);
+    copy_tile_bf16<D, kThreadsTc>(k + head_base + k0 * row_stride, row_stride, ks, kLd);
+    copy_tile_bf16<D, kThreadsTc>(v + head_base + k0 * row_stride, row_stride, vs, kLd);
     __syncthreads();
 
     // S = Q K^T: B[d][key] = K[key][d], so b0/b1 are adjacent pairs of a K row
@@ -223,30 +178,6 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 constexpr int kThreads32 = 256;  // 16 x 16 threads
 constexpr int kLdP = kBlockK + 4;
 
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// Copies a (64, D) tile whose rows are row_stride elements apart into shared
-// memory, rows ld floats apart.
-template <int D>
-__device__ __forceinline__ void load_tile(const float* __restrict__ src, long row_stride,
-                                          float* dst, int ld) {
-  constexpr int kChunks = kBlockQ * D / 4;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads32) {
-    const int r = c / (D / 4);
-    const int d = (c % (D / 4)) * 4;
-    float v[4];
-    load4(src + r * row_stride + d, v);
-    store4(dst + r * ld + d, v);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads32)
 packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -267,7 +198,7 @@ packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restric
                          static_cast<long>(blockIdx.y) * D;
   const int q0 = blockIdx.x * kBlockQ;
 
-  load_tile<D>(q + head_base + q0 * row_stride, row_stride, qs, kLd);
+  copy_tile_f32<D, kThreads32>(q + head_base + q0 * row_stride, row_stride, qs, kLd);
 
   float m[4], l[4], o[4][4 * kOc];
 #pragma unroll
@@ -279,8 +210,8 @@ packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restric
   }
 
   for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-    load_tile<D>(k + head_base + k0 * row_stride, row_stride, ks, kLd);
-    load_tile<D>(v + head_base + k0 * row_stride, row_stride, vs, kLd);
+    copy_tile_f32<D, kThreads32>(k + head_base + k0 * row_stride, row_stride, ks, kLd);
+    copy_tile_f32<D, kThreads32>(v + head_base + k0 * row_stride, row_stride, vs, kLd);
     __syncthreads();
 
     // S tile: rows ty*4+i, key columns tx+16*j
@@ -373,20 +304,6 @@ packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restric
 }
 
 // ---------------------------------------------------------------------------
-
-// Raises a kernel's dynamic shared-memory limit to smem, once per device: done
-// is the set of devices (one bit each) on which this kernel has it already.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (bit != 0 && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, size_t smem, std::atomic<uint64_t>& smem_set,

@@ -1,29 +1,45 @@
-"""Packed whole-sequence self-attention: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Packed whole-sequence self-attention: the CUDA kernels' wrappers, their plain
+PyTorch versions, and the autograd function that joins them.
 
-Counterpart of ``polyffusion_tpu/ops/fused_attention.py``: the kernel
-(``csrc/packed_attention.cu``) replaces ``_packed_kernel`` and the plain version
-is ``_einsum_reference_packed``. Both take q, k, v as the attention projections
-produce them, packed (B, T, H*D), and return the output in the same layout.
+Counterpart of ``polyffusion_tpu/ops/fused_attention.py``: the forward kernel
+(``csrc/packed_attention.cu``) replaces ``_packed_kernel`` and its plain version
+is ``_einsum_reference_packed``; the backward kernel
+(``csrc/packed_attention_bwd.cu``) replaces ``_packed_bwd_kernel`` and its plain
+version is that kernel's arithmetic in torch; ``packed_self_attention`` is the
+custom VJP ``_fused_packed``. All take q, k, v as the attention projections
+produce them, packed (B, T, H*D), and return results in the same layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64  # the kernel's query and key tile: T must be a multiple of it
+TILE = 64  # the kernels' query and key tile: T must be a multiple of it
 HEAD_DIMS = (64, 128)
 
-_fwd = None  # the kernel's C entry point, with its argument types set once
+_entry = {}  # C entry points by name, with their argument types set once
+
+
+def _kernel(source: str, name: str, argtypes):
+    """The C function ``name`` of ``csrc/<source>.cu``, built and loaded."""
+    if name not in _entry:
+        from ._build import load
+
+        fn = getattr(load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entry[name] = fn
+    return _entry[name]
 
 
 def packed_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, n_heads: int
 ) -> torch.Tensor:
-    """The plain version: fp32 logits and softmax, P cast to v's dtype, fp32
+    """The plain forward: fp32 logits and softmax, P cast to v's dtype, fp32
     accumulation of P V, output in q's dtype."""
     b, t, hd = q.shape
     d = hd // n_heads
@@ -36,55 +52,129 @@ def packed_attention_reference(
     return o.reshape(b, t, hd).to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int) -> None:
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+def packed_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float, n_heads: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward, ``_packed_bwd_kernel``'s arithmetic: P recomputed in
+    fp32 and rounded to the input dtype (Pc) after its normalisation; dV = Pc^T
+    dO, dP = dO V^T, dS = Pc (dP - rowsum(dP Pc)) scale rounded to the input
+    dtype, dQ = dS K, dK = dS^T Q, all accumulated in fp32."""
+    b, t, hd = q.shape
+    d = hd // n_heads
+    qh, kh, vh, doh = (x.reshape(b, x.shape[1], n_heads, d).float() for x in (q, k, v, do))
+    s = torch.einsum("bihd,bjhd->bhij", qh, kh) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    pc = p.to(q.dtype).float()
+    dv = torch.einsum("bhij,bihd->bjhd", pc, doh)
+    dp = torch.einsum("bihd,bjhd->bhij", doh, vh)
+    dsum = (dp * pc).sum(dim=-1, keepdim=True)
+    ds = (pc * (dp - dsum) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhij,bjhd->bihd", ds, kh)
+    dk = torch.einsum("bhij,bihd->bjhd", ds, qh)
+    return tuple(x.reshape(b, x.shape[1], hd).to(q.dtype) for x in (dq, dk, dv))
+
+
+def _check(*xs: torch.Tensor, n_heads: int) -> None:
+    q = xs[0]
+    if q.dim() != 3 or any(x.shape != q.shape for x in xs):
         raise ValueError(f"q, k, v must share one (B, T, H*D) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+                         f"{', '.join(str(tuple(x.shape)) for x in xs)}")
     b, t, hd = q.shape
     if hd % n_heads or hd // n_heads not in HEAD_DIMS:
         raise ValueError(f"head dim {hd}/{n_heads} not in {HEAD_DIMS}")
     if t % TILE:
         raise ValueError(f"sequence length {t} is not a multiple of {TILE}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+    if any(x.dtype != q.dtype for x in xs) or q.dtype not in _DTYPE_CODES:
         raise ValueError(f"dtype must be float32 or bfloat16 for all of q, k, v, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.device == k.device == v.device):
+                         f"got {', '.join(str(x.dtype) for x in xs)}")
+    if any(x.device != q.device for x in xs):
         raise ValueError("q, k, v must lie on one device")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"packed attention runs on cuda or cpu, not {q.device}")
+    for name, x in zip(("q", "k", "v", "dO"), xs):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _forward(q, k, v, scale: float, n_heads: int) -> torch.Tensor:
+    """The forward kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return packed_attention_reference(q, k, v, scale, n_heads)
+    fn = _kernel("packed_attention", "packed_attention_fwd",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    b, t, hd = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, t, n_heads, hd // n_heads, _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"packed_attention_fwd launch failed: cudaError {err}")
+    packed_self_attention.launches += 1
+    return out
+
+
+def packed_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float, n_heads: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of packed self-attention for the output gradient ``do``.
+
+    On a CUDA tensor this launches the backward kernel (and raises if it
+    cannot); on a CPU tensor it runs ``packed_attention_bwd_reference``."""
+    _check(q, k, v, do, n_heads=n_heads)
+    if q.device.type == "cpu":
+        return packed_attention_bwd_reference(q, k, v, do, scale, n_heads)
+    fn = _kernel("packed_attention_bwd", "packed_attention_bwd",
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    b, t, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(b, n_heads, t, 3, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, t, n_heads, hd // n_heads,
+                 _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"packed_attention_bwd launch failed: cudaError {err}")
+    packed_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+packed_attention_bwd.launches = 0
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Forward kernel with the backward kernel as its gradient (the JAX
+    package's ``_fused_packed`` custom VJP); q, k, v are kept for the backward,
+    which recomputes the softmax."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, n_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.n_heads = scale, n_heads
+        return _forward(q, k, v, scale, n_heads)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        # autograd's incoming gradient need not be contiguous
+        dq, dk, dv = packed_attention_bwd(q, k, v, do.contiguous(), ctx.scale, ctx.n_heads)
+        return dq, dk, dv, None, None
 
 
 def packed_self_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, n_heads: int
 ) -> torch.Tensor:
-    """(B, T, H*D) packed self-attention, T % 64 == 0, D in {64, 128}.
+    """(B, T, H*D) packed self-attention, T % 64 == 0, D in {64, 128};
+    differentiable, with ``packed_attention_bwd`` as its backward.
 
-    On a CUDA tensor this launches the kernel (and raises if it cannot); on a
-    CPU tensor it runs ``packed_attention_reference``."""
-    _check(q, k, v, n_heads)
-    if q.device.type == "cpu":
-        return packed_attention_reference(q, k, v, scale, n_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"packed_self_attention runs on cuda or cpu, not {q.device}")
-    global _fwd
-    if _fwd is None:
-        from ._build import load
-
-        fn = load("packed_attention").packed_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fwd = fn
-    b, t, hd = q.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t, n_heads, hd // n_heads, _DTYPE_CODES[q.dtype], float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"packed_attention_fwd launch failed: cudaError {err}")
-    packed_self_attention.launches += 1
-    return out
+    On a CUDA tensor this launches the kernels (and raises if it cannot); on a
+    CPU tensor it runs their plain versions."""
+    _check(q, k, v, n_heads=n_heads)
+    return _PackedAttention.apply(q, k, v, scale, n_heads)
 
 
 packed_self_attention.launches = 0

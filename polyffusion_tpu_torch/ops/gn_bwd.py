@@ -1,0 +1,159 @@
+"""GroupNorm + per-channel affine over NCHW with a CUDA backward.
+
+Counterpart of ``polyffusion_tpu/ops/gn_bwd.py``: ``group_norm_affine`` is its
+custom VJP of the same name, whose forward is the UNet's one-pass GroupNorm
+(``models/unet.py:GroupNorm32``) bit for bit and which saves the per-channel
+fp32 mean and inverse std for the backward, as ``_gna_fwd`` does. The backward
+kernel (``csrc/gn_bwd.cu``) replaces ``_gn_bwd_kernel``; its plain version
+``gn_bwd_reference`` is the XLA branch of ``_gna_bwd``.
+
+The JAX package keeps this backward opt-in, because on the TPU XLA fused the
+analytic backward into neighbouring work and won. The port runs eagerly with
+no such fusion, so on a CUDA tensor every GroupNorm's backward is the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHANNELS_PER_GROUP = 64  # the kernel's shared-memory table
+
+_entry = []  # the C entry point, with its argument types set once
+
+
+def gn_primal(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GroupNorm with one-pass fp32 statistics (E[x^2] - E[x]^2) whose
+    per-channel affine is folded in fp32 and applied in x's dtype. Returns
+    (y, mean_c, inv_c), the statistics fp32 (B, C), repeated per channel."""
+    b, c = x.shape[:2]
+    g = groups
+    x32 = x.float()
+    s1 = x32.sum(dim=(2, 3))
+    s2 = (x32 * x32).sum(dim=(2, 3))
+    n = x[0, 0].numel() * (c // g)
+    mean = s1.view(b, g, c // g).sum(-1) / n
+    meansq = s2.view(b, g, c // g).sum(-1) / n
+    inv = torch.rsqrt(torch.clamp(meansq - mean * mean, min=0.0) + eps)
+    inv_c = inv.repeat_interleave(c // g, dim=1)
+    mean_c = mean.repeat_interleave(c // g, dim=1)
+    scale = weight.float()
+    a = (inv_c * scale).to(x.dtype)
+    off = (bias.float() - mean_c * inv_c * scale).to(x.dtype)
+    return x * a[:, :, None, None] + off[:, :, None, None], mean_c, inv_c
+
+
+def gn_bwd_reference(
+    x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tensor,
+    gamma: torch.Tensor, groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward (the JAX package's ``_gna_bwd``, XLA branch): (dx in
+    x's dtype, dgamma (C,) fp32, dbeta (C,) fp32)."""
+    b, c = x.shape[:2]
+    cg = c // groups
+    n_g = x[0, 0].numel() * cg
+    mean4, inv4 = mean_c[:, :, None, None], inv_c[:, :, None, None]
+    dy32 = dy.float()
+    xh = (x.float() - mean4) * inv4
+    dyg = dy32 * gamma.float()[None, :, None, None]
+    dbeta = dy32.sum(dim=(0, 2, 3))
+    dgamma = (dy32 * xh).sum(dim=(0, 2, 3))
+
+    def group_mean(v):  # (B, C) -> per-group mean repeated to (B, C)
+        gsum = v.view(b, groups, cg).sum(-1, keepdim=True)
+        return (gsum / n_g).expand(b, groups, cg).reshape(b, c)
+
+    s1 = group_mean(dyg.sum(dim=(2, 3)))[:, :, None, None]
+    s2 = group_mean((dyg * xh).sum(dim=(2, 3)))[:, :, None, None]
+    dx = inv4 * (dyg - (s1 + xh * s2))
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+def _check(x, dy, mean_c, inv_c, gamma, groups: int) -> None:
+    if x.dim() != 4 or dy.shape != x.shape:
+        raise ValueError(f"x and dy must share one (B, C, H, W) shape, got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)}")
+    b, c, h, w = x.shape
+    if c % groups or c // groups > MAX_CHANNELS_PER_GROUP:
+        raise ValueError(f"{c} channels in {groups} groups: the kernel takes at most "
+                         f"{MAX_CHANNELS_PER_GROUP} channels per group")
+    if (h * w) % 8:
+        raise ValueError(f"H * W = {h * w} is not a multiple of 8")
+    if dy.dtype != x.dtype or x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"x and dy must both be float32 or bfloat16, got {x.dtype}, {dy.dtype}")
+    for name, v, shape in (("mean_c", mean_c, (b, c)), ("inv_c", inv_c, (b, c)), ("gamma", gamma, (c,))):
+        if v.shape != shape or v.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of shape {shape}, got {v.dtype} {tuple(v.shape)}")
+    if any(v.device != x.device for v in (dy, mean_c, inv_c, gamma)):
+        raise ValueError("all inputs must lie on one device")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"group_norm_bwd runs on cuda or cpu, not {x.device}")
+    for name, v in (("x", x), ("dy", dy), ("mean_c", mean_c), ("inv_c", inv_c), ("gamma", gamma)):
+        if not v.is_contiguous() or v.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def group_norm_bwd(
+    x: torch.Tensor, dy: torch.Tensor, mean_c: torch.Tensor, inv_c: torch.Tensor,
+    gamma: torch.Tensor, groups: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dgamma, dbeta) of ``gn_primal`` for the output gradient ``dy``.
+
+    On a CUDA tensor this launches the kernel (and raises if it cannot), then
+    sums its (B, C) partials over B; on a CPU tensor it runs
+    ``gn_bwd_reference``."""
+    _check(x, dy, mean_c, inv_c, gamma, groups)
+    if x.device.type == "cpu":
+        return gn_bwd_reference(x, dy, mean_c, inv_c, gamma, groups)
+    if not _entry:
+        from ._build import load
+
+        fn = load("gn_bwd").gn_bwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entry.append(fn)
+    b, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    dgb = torch.empty(b, c, dtype=torch.float32, device=x.device)
+    dbb = torch.empty(b, c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _entry[0](x.data_ptr(), dy.data_ptr(), mean_c.data_ptr(), inv_c.data_ptr(),
+                        gamma.data_ptr(), dx.data_ptr(), dgb.data_ptr(), dbb.data_ptr(),
+                        b, c, groups, h * w, _DTYPE_CODES[x.dtype],
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gn_bwd launch failed: cudaError {err}")
+    group_norm_bwd.launches += 1
+    return dx, dgb.sum(0), dbb.sum(0)
+
+
+group_norm_bwd.launches = 0
+
+
+class _GroupNormAffine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps):
+        y, mean_c, inv_c = gn_primal(x, weight, bias, groups, eps)
+        ctx.save_for_backward(x, weight, mean_c, inv_c)
+        ctx.groups = groups
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean_c, inv_c = ctx.saved_tensors
+        dx, dgamma, dbeta = group_norm_bwd(
+            x.contiguous(), dy.contiguous(), mean_c, inv_c, weight.float().contiguous(), ctx.groups
+        )
+        return dx, dgamma.to(weight.dtype), dbeta.to(weight.dtype), None, None
+
+
+def group_norm_affine(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float
+) -> torch.Tensor:
+    """``gn_primal``'s output, differentiable through ``group_norm_bwd``."""
+    return _GroupNormAffine.apply(x, weight, bias, groups, eps)

@@ -14,6 +14,7 @@ import time
 from collections import defaultdict
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .config import load_params
@@ -22,11 +23,17 @@ from .tasks import SDFTask
 
 # kernel-name fragments -> class, first match wins
 CLASSES = (
+    ("attn_bwd", "packed_attention_bwd (this port's kernel)"),
+    ("gn_bwd", "gn_bwd (this port's kernel)"),
     ("packed_attention", "packed_attention (this port's kernel)"),
+    ("multi_tensor", "optimizer and master copies (foreach kernels)"),
     ("cudnn", "convolution (cuDNN, with its NCHW<->NHWC transposes)"),
     ("fprop", "convolution (cuDNN, with its NCHW<->NHWC transposes)"),
+    ("dgrad", "convolution (cuDNN, with its NCHW<->NHWC transposes)"),
+    ("wgrad", "convolution (cuDNN, with its NCHW<->NHWC transposes)"),
     ("conv", "convolution (cuDNN, with its NCHW<->NHWC transposes)"),
     ("gemm", "matmul (cuBLAS)"),
+    ("nvjet", "matmul (cuBLAS)"),
     ("layer_norm", "LayerNorm"),
     ("reduce", "reductions (GroupNorm statistics)"),
     ("copy", "copies and casts"),
@@ -77,10 +84,20 @@ def main() -> None:
             run()
             wall_ms = (time.perf_counter() - t0) * 1e3
 
+    breakdown(prof, wall_ms, EVALS, "eval")
+
+
+def breakdown(prof, wall_ms: float, n: int, unit: str) -> None:
+    """Prints the device time of a profiled window of ``n`` units (evals,
+    steps) by kernel class and the top kernels, and the window's idle share."""
     by_class, by_kernel, counts = defaultdict(float), defaultdict(float), defaultdict(int)
     for evt in prof.key_averages():
+        # kernels only: operators, autograd nodes and annotated ranges (such as
+        # Optimizer.step, also shown on the device's timeline) carry the
+        # device time of the kernels they launch
         dev_us = evt.self_device_time_total
-        if dev_us <= 0 or evt.key.startswith("aten::") or evt.key in NOT_KERNELS:
+        if (evt.device_type != DeviceType.CUDA or evt.is_user_annotation or dev_us <= 0
+                or evt.key in NOT_KERNELS):
             continue
         by_class[classify(evt.key)] += dev_us
         by_kernel[evt.key] += dev_us
@@ -93,12 +110,12 @@ def main() -> None:
           f"idle share {1 - busy_ms / wall_ms:.3f}")
     if busy_ms > wall_ms:
         print("warning: device busy exceeds the wall time: some device time is counted twice")
-    print("device time per eval by kernel class:")
+    print(f"device time per {unit} by kernel class:")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"  {us / 1e3 / EVALS:9.3f} ms  {us / 1e3 / busy_ms:6.1%}  {cls}")
-    print("top kernels (ms per eval, launches per eval):")
+        print(f"  {us / 1e3 / n:9.3f} ms  {us / 1e3 / busy_ms:6.1%}  {cls}")
+    print(f"top kernels (ms per {unit}, launches per {unit}):")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"  {us / 1e3 / EVALS:9.3f} ms  {counts[name] // EVALS:4d}  {name[:110]}")
+        print(f"  {us / 1e3 / n:9.3f} ms  {counts[name] // n:4d}  {name[:110]}")
 
 
 if __name__ == "__main__":

@@ -7,6 +7,14 @@ nmat
 prmat2c
     The diffusion "image": ``(2, n_step, 128)`` float32 with an onset channel and a
     sustain channel over (time-step, pitch).  8 bars = 128 steps.
+prmat
+    ``(n_step, 128)`` int64; ``prmat[t, p] = duration`` at onsets (texture-encoder input).
+pnotree
+    PianoTree ``(n_step, max_note_count, 6)`` int64; col 0 = pitch index with
+    sos/eos/pad specials (128/129/130), cols 1:6 = (duration-1) in 5-bit binary.
+chd
+    Chord matrix ``(n_beat, 14)``: ``[root, chroma x 12, bass]``; one-hot form is
+    ``(n_beat, 36)``: ``[root one-hot 12 | chroma 12 | bass one-hot 12]``.
 """
 
 from __future__ import annotations
@@ -64,3 +72,88 @@ def sustain_run_lengths(sustain_bin: np.ndarray) -> np.ndarray:
         nxt = sustain_bin[t] * (nxt + 1)
         run[t] = nxt
     return run
+
+
+def nmat_to_prmat(nmat, n_step: int = 32) -> np.ndarray:
+    """Note matrix -> duration piano-roll ``(n_step, 128)`` (reference ``utils.py:212-217``)."""
+    pr = np.zeros((n_step, 128), dtype=np.int64)
+    nm = _as_nmat(nmat)
+    if nm.shape[0] == 0:
+        return pr
+    o, p, d = nm[:, 0], nm[:, 1], nm[:, 2]
+    keep = (o >= 0) & (o < n_step)
+    pr[o[keep], p[keep]] = d[keep]
+    return pr
+
+
+PITCH_SOS = 128
+PITCH_EOS = 129
+PITCH_PAD = 130
+DUR_PAD = 2
+
+
+def nmat_to_pianotree_repr(
+    nmat,
+    n_step: int = 32,
+    max_note_count: int = 20,
+    dur_pad_ind: int = DUR_PAD,
+    min_pitch: int = 0,
+    pitch_sos_ind: int = PITCH_SOS,
+    pitch_eos_ind: int = PITCH_EOS,
+    pitch_pad_ind: int = PITCH_PAD,
+) -> np.ndarray:
+    """Note matrix -> PianoTree grid (reference ``utils.py:132-171``).
+
+    Row layout per time step: ``[sos, note, note, ..., eos, pad...]`` in the pitch
+    column; per-note duration is ``(min(d,32) - 1)`` as 5-bit binary in cols 1:6.
+    Note insertion order follows nmat order (stateful per-step cursor), so this stays
+    a small Python loop.
+    """
+    pnotree = np.full((n_step, max_note_count, 6), dur_pad_ind, dtype=np.int64)
+    pnotree[:, :, 0] = pitch_pad_ind
+    pnotree[:, 0, 0] = pitch_sos_ind
+
+    cur = np.ones(n_step, dtype=np.int64)
+    bits = np.array([4, 3, 2, 1, 0], dtype=np.int64)
+    for o, p, d in _as_nmat(nmat):
+        if o < 0 or o >= n_step:
+            continue
+        pnotree[o, cur[o], 0] = p - min_pitch
+        d = min(int(d), 32)
+        pnotree[o, cur[o], 1:] = (max(d - 1, 0) >> bits) & 1
+        if cur[o] < max_note_count - 1:
+            cur[o] += 1
+    pnotree[np.arange(n_step), cur, 0] = pitch_eos_ind
+    return pnotree
+
+
+# pitch-shift augmentation (reference utils.py:174-209)
+
+
+def pr_mat_pitch_shift(pr_mat: np.ndarray, shift: int) -> np.ndarray:
+    """Roll the pitch (last) axis; works for both prmat and prmat2c."""
+    return np.roll(pr_mat, shift, axis=-1)
+
+
+def pianotree_pitch_shift(pnotree: np.ndarray, shift: int) -> np.ndarray:
+    out = pnotree.copy()
+    out[out[:, :, 0] < 128, 0] += shift
+    return out
+
+
+def chd_pitch_shift(chd: np.ndarray, shift: int) -> np.ndarray:
+    out = chd.copy()
+    out[:, 0] = (out[:, 0] + shift) % 12
+    out[:, 1:13] = np.roll(out[:, 1:13], shift, axis=-1)
+    out[:, -1] = (out[:, -1] + shift) % 12
+    return out
+
+
+def chd_to_onehot(chd: np.ndarray) -> np.ndarray:
+    """(n_beat, 14) chord matrix -> (n_beat, 36) one-hot (reference ``utils.py:194-201``)."""
+    n_step = chd.shape[0]
+    onehot = np.zeros((n_step, 36), dtype=np.float32)
+    onehot[np.arange(n_step), chd[:, 0].astype(np.int64)] = 1
+    onehot[:, 12:24] = chd[:, 1:13]
+    onehot[np.arange(n_step), 24 + chd[:, -1].astype(np.int64)] = 1
+    return onehot

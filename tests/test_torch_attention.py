@@ -98,3 +98,84 @@ def test_wrapper_rejects_strided_input():
     q = torch.zeros(1, 64, 256)[:, :, :128]
     with pytest.raises(ValueError, match="contiguous"):
         packed_self_attention(q, q, q, 0.125, 2)
+
+
+# -- the backward -------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_packed_grads():
+    """jax.grad through the interpret-mode Pallas kernel (its custom VJP runs
+    the Pallas backward ``_packed_bwd_kernel``), compiled once per dtype."""
+    import jax
+
+    def grads(q, k, v, co, scale, h):
+        def loss(q, k, v):
+            out = fused_self_attention_packed(q, k, v, scale, h, interpret=True)
+            return jnp.sum(co * out.astype(jnp.float32))
+
+        return jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+
+    return grads
+
+
+def _port_grads(q, k, v, co, scale, h, dtype=torch.float32):
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    out = packed_self_attention(*leaves, scale, h)
+    return torch.autograd.grad(out.float(), leaves, torch.from_numpy(co))
+
+
+@pytest.mark.parametrize("b,h", [(2, 4), (1, 2)])
+def test_packed_backward_matches_pallas_fp32(jax_packed_grads, b, h):
+    q, k, v = _qkv(b, T, h, D, seed=20 + b)
+    co = np.random.default_rng(21).standard_normal(q.shape).astype(np.float32)
+    scale = D**-0.5
+    want = jax_packed_grads(*map(jnp.asarray, (q, k, v, co)), scale, h)
+    got = _port_grads(q, k, v, co, scale, h)
+    for name, a, w in zip("qkv", got, want):
+        # the tolerance of tests/test_fused_attention.py:145
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=5e-4, err_msg=f"d{name}")
+
+
+def test_packed_backward_bf16_close_to_fp32(jax_packed_grads):
+    """bf16 grads of the port within bf16 resolution of the JAX kernel's fp32
+    VJP: the bound of tests/test_fused_attention.py:184."""
+    q, k, v = _qkv(2, T, 4, D, seed=6)
+    co = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    scale = D**-0.5
+    want = jax_packed_grads(*map(jnp.asarray, (q, k, v, co)), scale, 4)
+    got = _port_grads(q, k, v, co, scale, 4, torch.bfloat16)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16
+        w = np.asarray(w)
+        err = np.abs(a.float().numpy() - w).max() / max(1.0, np.abs(w).max())
+        assert err < 0.06, (name, err)
+
+
+def test_attention_output_is_differentiable_through_the_kernel_function():
+    """The kernel path carries its own backward: the output's grad_fn is the
+    autograd function whose backward is ``packed_attention_bwd`` (the CUDA
+    kernel on the card), and it takes a non-contiguous output gradient."""
+    from polyffusion_tpu_torch.ops.fused_attention import packed_attention_bwd
+
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(1, 128, 2, D, seed=8))
+    out = multihead_attention(*(x.view(1, 128, 2, D) for x in (q, k, v)), D**-0.5)
+    node = out.grad_fn
+    while node is not None and "PackedAttention" not in type(node).__name__:
+        node = node.next_functions[0][0]
+    assert node is not None, "the output does not come from the kernel's autograd function"
+    before = packed_attention_bwd.launches
+    co = torch.randn(1, 2, 128, D).transpose(1, 2)  # (1, 128, 2, D), not contiguous
+    out.backward(co)
+    assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v))
+    assert packed_attention_bwd.launches == before  # the CPU runs the plain version
+
+
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take():
+    from polyffusion_tpu_torch.ops.fused_attention import packed_attention_bwd
+
+    q = torch.zeros(1, 64, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_attention_bwd(q, q, q, torch.zeros(1, 64, 256)[:, :, :128], 0.125, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        packed_attention_bwd(q, q, q, q.to(torch.bfloat16), 0.125, 2)

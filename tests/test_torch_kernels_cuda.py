@@ -11,10 +11,33 @@ Without a GPU every case skips.
 import pytest
 import torch
 
+from polyffusion_tpu_torch.ops.attention import multihead_attention
 from polyffusion_tpu_torch.ops.fused_attention import (
+    packed_attention_bwd,
+    packed_attention_bwd_reference,
     packed_attention_reference,
     packed_self_attention,
 )
+from polyffusion_tpu_torch.ops.gn_bwd import gn_bwd_reference, gn_primal, group_norm_bwd
+
+# the limits of chip_smoke.py (set there from the card's readings)
+BWD_LIMITS = {torch.bfloat16: (2e-3, 2**-6), torch.float32: (1e-6, 0.0)}
+GN_LIMITS = {torch.bfloat16: (1e-4, 2**-6), torch.float32: (1e-6, 1e-6)}
+GN_PARAM_LIMIT = (1e-3, 1e-5)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from polyffusion_tpu_torch.device import tf32
+
+    tf32(False)
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _within(got, want, atol, rtol):
+    want = want.float()
+    return bool(((got.float() - want).abs() <= atol + rtol * want.abs()).all())
 
 
 @pytest.mark.cuda
@@ -46,3 +69,78 @@ def test_cuda_kernel_matches_plain(b, t, h, d, dtype, atol, rtol):
     # fp32: reassociation of the online softmax
     want = want.float()
     assert ((got.float() - want).abs() <= atol + rtol * want.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,t,h,d,dtype",
+    [
+        (4, 1024, 4, 64, torch.bfloat16),
+        (4, 256, 4, 64, torch.bfloat16),
+        (2, 512, 2, 128, torch.bfloat16),
+        (2, 512, 2, 128, torch.float32),
+        (3, 64, 3, 64, torch.float32),
+    ],
+)
+def test_cuda_attention_bwd_matches_plain(b, t, h, d, dtype):
+    g = _card()
+    q, k, v, do = (torch.randn(b, t, h * d, device="cuda", generator=g).to(dtype) for _ in range(4))
+    before = packed_attention_bwd.launches
+    got = packed_attention_bwd(q, k, v, do, d**-0.5, h)
+    torch.cuda.synchronize()
+    assert packed_attention_bwd.launches == before + 1
+    want = packed_attention_bwd_reference(q, k, v, do, d**-0.5, h)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        assert _within(x, y, *BWD_LIMITS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_is_differentiable(dtype):
+    """Autograd through ``multihead_attention`` on the card reaches q, k and v
+    through the backward kernel, and agrees with the plain version's autograd
+    (the same call on CPU copies)."""
+    g = _card()
+    b, t, h, d = 2, 256, 4, 64
+    qkv = [torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype).requires_grad_()
+           for _ in range(3)]
+    co = torch.randn(b, t, h, d, device="cuda", generator=g).to(dtype)
+    before = packed_attention_bwd.launches
+    out = multihead_attention(*qkv, d**-0.5)
+    got = torch.autograd.grad(out, qkv, co)
+    torch.cuda.synchronize()
+    assert packed_attention_bwd.launches == before + 1
+    cpu = [x.detach().cpu().requires_grad_() for x in qkv]
+    want = torch.autograd.grad(multihead_attention(*cpu, d**-0.5), cpu, co.cpu())
+    for x, y in zip(got, want):
+        assert _within(x.cpu(), y, *BWD_LIMITS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,c,hh,ww,dtype",
+    [
+        (2, 64, 128, 128, torch.bfloat16),
+        (2, 192, 64, 64, torch.bfloat16),
+        (4, 512, 16, 16, torch.bfloat16),
+        (2, 128, 32, 32, torch.float32),
+        (3, 64, 8, 8, torch.float32),
+    ],
+)
+def test_cuda_gn_bwd_matches_plain(b, c, hh, ww, dtype):
+    g = _card()
+    x = (torch.randn(b, c, hh, ww, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn(b, c, hh, ww, device="cuda", generator=g).to(dtype)
+    gamma = torch.randn(c, device="cuda", generator=g) * 0.5 + 1.0
+    beta = torch.randn(c, device="cuda", generator=g) * 0.1
+    _, mean_c, inv_c = gn_primal(x, gamma, beta, 32, 1e-5)
+    before = group_norm_bwd.launches
+    got = group_norm_bwd(x, dy, mean_c, inv_c, gamma, 32)
+    torch.cuda.synchronize()
+    assert group_norm_bwd.launches == before + 1
+    want = gn_bwd_reference(x, dy, mean_c, inv_c, gamma, 32)
+    assert got[0].dtype == dtype
+    assert _within(got[0], want[0], *GN_LIMITS[dtype])
+    for x_, y in zip(got[1:], want[1:]):
+        assert _within(x_, y, *GN_PARAM_LIMIT)
