@@ -7,16 +7,22 @@ From the root of a checkout, with one CUDA card. It builds the port's CUDA
 kernels from the sources in the checkout (one ``nvcc`` per source, in
 parallel), holds every kernel against its plain PyTorch version on the card
 (with a planted fault that must fail each limit), holds the full-width fp32
-UNet eval and one full-width fp32 train step on the card against the CPU, then
-drives the two main paths through the user's entry points, each with the
-kernels' launch counts set to 0 just before it and read just after:
+UNet eval, one full-width fp32 train step and a full-width fp32 DDPM RePaint
+run on the card against the CPU, then drives the main paths through the
+user's entry points, each with the kernels' launch counts set to 0 just before
+it and read just after:
 
 - sampling: the full-width ``sdf_chd8bar`` preset in bf16 with seeded random
   weights, chord one-hots -> chord encoder -> ``InferenceSession.generate`` at
   DDIM-50, CFG 5, for requests of batch 1, 16, 64 and 64;
 - training: ``polyffusion_tpu_torch.main`` on synthetic songs with a seeded
   random ``chd8bar.pt``, the same preset in bf16 at its batch 16, 30 steps with
-  one validation and one checkpoint, then ``--resume`` for 6 more.
+  one validation and one checkpoint, then ``--resume`` for 6 more;
+- the inference CLI, ``polyffusion_tpu_torch.inference.main``, on the run
+  directory the training wrote: (A) the default DDPM-1000 RePaint inpainting
+  of a song's lower voices (``--inpaint_type below``, 2 segments, CFG 5), then
+  (B) piece-batched long-form generation at DDIM-50 (``--autoreg --ddim``,
+  3 segments, 2 pieces, CFG 5); and a profiled window of request A's steps.
 
 Every phase raises on failure and the script then exits non-zero without a
 result. It imports nothing of JAX or of the JAX package.
@@ -74,6 +80,18 @@ GN_PARAM_ATOL, GN_PARAM_RTOL = 1e-3, 1e-5
 # 2 lr everywhere and within 1e-7 in all but 0.1 % of the elements.
 STEP_LOSS_RTOL, STEP_NORM_RTOL, STEP_GRAD_RTOL = 1e-5, 1e-4, 1e-4
 STEP_PARAM_TIGHT, STEP_PARAM_SHARE = 1e-7, 1e-3
+# RePaint epilogue (kernel 7) against its plain version, elementwise. Both
+# take the same fp32 products; the kernel may contract a product and a sum into
+# one FMA, which moves a result by an ulp of the intermediates (x0 = a x - b eps
+# reaches some 60 at step 999, where a = sqrt_recip_alpha_bar ~ 14.6). The
+# sound kernel's worst reading on an H100 was 9.5e-7, 0.019 x this limit; the
+# planted fault (the blend ignoring the mask) reads 3.4e5 x it.
+EPI_ATOL, EPI_RTOL = 1e-5, 1e-5
+EPI_STEPS = (999, 500, 0)
+# A full-width fp32 DDPM RePaint run, card against CPU: the tolerance of the
+# port's sampler parity tests (tests/test_torch_slice.py, test_torch_ddpm.py)
+PAINT_ATOL, PAINT_RTOL = 2e-3, 1e-3
+PAINT_T_START, PAINT_REPAINT_N = 2, 2
 MAIN_BATCHES = (1, 16, 64, 64)
 LAUNCHES_PER_REQUEST = 550  # 11 self-attention sites x 50 DDIM steps, CFG in one double batch
 # the training path: the full-width preset in bf16 at its batch 16
@@ -82,6 +100,11 @@ TRAIN_SONGS, TRAIN_STEPS, RESUME_STEPS, LOG_EVERY = 40, 30, 6, 10
 # 56 GroupNorm32 backwards (kernel 6): 22 ResBlocks x 2, 11 SpatialTransformer
 # norms and the output norm (counted from the modules by count_sites)
 ATTENTION_SITES, GROUPNORM_SITES = 11, 56
+# the inference CLI's requests: (A) DDPM over all 1000 steps at repaint_n 1,
+# one epilogue and one UNet eval per step; (B) 2 x 3 - 1 = 5 windows of DDIM-50
+CLI_SONG, CLI_A_SEGMENTS, CLI_B_SEGMENTS, CLI_B_PIECES = "song000.npz", 2, 3, 2
+CLI_DDPM_STEPS, CLI_DDIM_STEPS = 1000, 50
+PROFILE_STEPS = 50
 
 
 def log(msg: str) -> None:
@@ -152,9 +175,14 @@ def check_packed_attention():
         packed_self_attention,
     )
 
-    cases = [  # (B, T, H, D, dtype, atol, rtol)
+    cases = [  # (B, T, H, D, dtype, atol, rtol): DDIM sampling's at batch 64, the
+        # inference CLI's (UNet batch 4), then the train step's
         (128, 1024, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
         (128, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        (4, 1024, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        (4, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        (16, 1024, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        (16, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
         (16, 1024, 4, 64, torch.float32, FP32_ATOL, FP32_RTOL),
         (16, 256, 4, 64, torch.float32, FP32_ATOL, FP32_RTOL),
     ]
@@ -347,6 +375,68 @@ def gn_dx_without_s2(x, dy, mean_c, inv_c, gamma, groups):
     return (inv4 * (dyg - s1)).to(x.dtype)
 
 
+def check_repaint_epilogue():
+    """The RePaint epilogue kernel against its plain version at request A's
+    shape (batch 2), batch 4 and a full batch of 64, with the scalars of the
+    first, a middle and the last of the preset's 1000 steps. At each the limit
+    is also shown to catch a planted fault: the blend ignoring the mask (the
+    unknown region's update everywhere). No single PyTorch call computes this
+    function, so the plain composition is the only yardstick."""
+    import torch
+
+    from polyffusion_tpu_torch.diffusion.sampler import _epilogue_scalars
+    from polyffusion_tpu_torch.diffusion.schedule import make_schedule
+    from polyffusion_tpu_torch.ops.repaint_epilogue import (
+        fused_repaint_epilogue,
+        repaint_epilogue_reference,
+    )
+
+    cfg = full_cfg(bf16=False)
+    sched = make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    for b in (2, 4, 64):
+        shape = (b, 2, 128, 128)
+        x, eps, p_noise, q_noise = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+        orig = (torch.rand(shape, device="cuda", generator=g) < 0.05).float()
+        mask = (torch.rand(shape, device="cuda", generator=g) < 0.5).float()
+        tensors = (x, eps, p_noise, orig, q_noise, mask)
+        err, ratio, fault_ratio = 0.0, 0.0, float("inf")
+        for step in EPI_STEPS:
+            scalars = _epilogue_scalars(sched, step)
+            got = fused_repaint_epilogue(*tensors, scalars)
+            torch.cuda.synchronize()
+            want = repaint_epilogue_reference(*tensors, scalars)
+            fault = repaint_epilogue_reference(*tensors[:5], torch.zeros_like(mask), scalars)
+            err = max(err, (got - want).abs().max().item())
+            ratio = max(ratio, limit_ratio(got, want, EPI_ATOL, EPI_RTOL))
+            fault_ratio = min(fault_ratio, limit_ratio(fault, want, EPI_ATOL, EPI_RTOL))
+        if not ratio <= 1.0:
+            raise AssertionError(f"repaint_epilogue B={b}: max_abs_err {err}, {ratio:.3g} x the "
+                                 f"limit (atol {EPI_ATOL}, rtol {EPI_RTOL})")
+        if not fault_ratio > 1.0:
+            raise AssertionError(f"the limit at B={b} does not catch a blend that ignores the "
+                                 f"mask ({fault_ratio:.3g} x the limit)")
+        scalars = _epilogue_scalars(sched, 500)
+        ms = time_in_turns({
+            "kernel": lambda: fused_repaint_epilogue(*tensors, scalars),
+            "plain": lambda: repaint_epilogue_reference(*tensors, scalars),
+        })
+        # six fp32 tensors read once, one written once
+        bound = 7 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        row = dict(shape=f"B={b} C=2 H=128 W=128 float32", max_abs_err=err, atol=EPI_ATOL,
+                   rtol=EPI_RTOL, limit_ratio=ratio, fault_limit_ratio=fault_ratio,
+                   ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
+                   bound_ms=bound, bound_by="bytes")
+        log(f"[kernel] repaint_epilogue {row['shape']}, steps {EPI_STEPS}: max_abs_err {err:.3g}, "
+            f"{ratio:.3g} x the limit (atol {EPI_ATOL}, rtol {EPI_RTOL}; blend ignoring the mask: "
+            f"{fault_ratio:.3g} x)  kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
+            f"bound {bound:.4f} ms (bytes)")
+        rows.append(row)
+        del tensors, x, eps, p_noise, q_noise, orig, mask, got, want, fault
+    return rows
+
+
 def full_cfg(bf16: bool):
     from polyffusion_tpu_torch.config import load_params
 
@@ -453,6 +543,56 @@ def check_train_step_against_cpu():
         raise AssertionError("the full-width fp32 train step on the card disagrees with the CPU")
 
 
+def nhwc(a):
+    return np.ascontiguousarray(np.transpose(a, (0, 2, 3, 1)))
+
+
+def check_ddpm_paint_against_cpu():
+    """DDPM RePaint at full width in fp32, batch 1 doubled by CFG 5, a "below"
+    mask, repaint_n 2, from step PAINT_T_START down: the card (kernels 1 and 7)
+    against the CPU (their plain versions), under the same replayed noises."""
+    import torch
+
+    from polyffusion_tpu_torch.diffusion import sampler as S
+    from polyffusion_tpu_torch.inference import get_mask
+    from polyffusion_tpu_torch.ops.repaint_epilogue import fused_repaint_epilogue
+
+    cfg = full_cfg(bf16=False)
+    rng = np.random.default_rng(5)
+    orig = (rng.random((1, 2, 128, 128)) > 0.97).astype(np.float32)
+    arrays = dict(
+        x=rng.standard_normal((1, 128, 128, 2)).astype(np.float32),
+        cond=rng.standard_normal((1, 1, cfg.d_cond)).astype(np.float32),
+        orig=nhwc(orig),
+        mask=nhwc(get_mask(orig, "below")),
+        noise=rng.standard_normal((PAINT_T_START + 1, PAINT_REPAINT_N, 3, 1, 128, 128, 2))
+        .astype(np.float32),
+    )
+    out = {}
+    for device in ("cuda", "cpu"):
+        task = make_task(cfg, device, seed=6)
+        a = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        before = fused_repaint_epilogue.launches
+        t0 = time.perf_counter()
+        got = S.ddpm_paint(task.apply_eps, task.schedule, a["x"], a["cond"], PAINT_T_START,
+                           orig=a["orig"], mask=a["mask"], uncond_scale=5.0,
+                           uncond_cond=-torch.ones_like(a["cond"]), repaint_n=PAINT_REPAINT_N,
+                           noise_override=a["noise"]).cpu()
+        out[device] = (got, fused_repaint_epilogue.launches - before, time.perf_counter() - t0)
+        del task, a
+    (got, launches, t_gpu), (want, _, t_cpu) = out["cuda"], out["cpu"]
+    err = (got - want).abs()
+    ok = bool((err <= PAINT_ATOL + PAINT_RTOL * want.abs()).all()) and bool(torch.isfinite(got).all())
+    log(f"[ddpm] full-width fp32 RePaint (B=1, CFG 5, below, repaint_n {PAINT_REPAINT_N}, steps "
+        f"{PAINT_T_START}..0) card vs CPU: max_abs_err {err.max().item():.3g} (atol {PAINT_ATOL}, "
+        f"rtol {PAINT_RTOL}), |out| max {want.abs().max().item():.3g}, epilogue launches "
+        f"{launches}; card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
+    if launches != (PAINT_T_START + 1) * PAINT_REPAINT_N:
+        raise AssertionError(f"the card's RePaint run launched the epilogue {launches} times")
+    if not ok:
+        raise AssertionError("the full-width DDPM RePaint run on the card disagrees with the CPU")
+
+
 def count_sites(unet):
     """(self-attention sites, GroupNorm32 sites) of a UNet, from its modules."""
     from polyffusion_tpu_torch.models.unet import GroupNorm32, SpatialTransformer
@@ -489,11 +629,12 @@ def write_songs(data_dir, n, seed):
                        db_pos + 128 <= n_bins, n_beats=n_beats)
 
 
-def drive_training_path(counters):
+def drive_training_path(counters, work):
     """``python -m polyffusion_tpu_torch.main`` for the full-width bf16
     ``sdf_chd8bar`` preset at its batch 16: TRAIN_STEPS steps, one validation
-    and one checkpoint, then ``--resume`` for RESUME_STEPS more. Returns the
-    launches of each kernel over both runs."""
+    and one checkpoint, then ``--resume`` for RESUME_STEPS more. Writes its
+    encoder, songs and run directory under ``work`` (``pretrained``, ``songs``,
+    ``run``). Returns the launches of each kernel over both runs."""
     import json as json_
 
     import torch
@@ -502,55 +643,54 @@ def drive_training_path(counters):
     from polyffusion_tpu_torch.main import main as train_main
 
     cfg = full_cfg(bf16=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        pretrained, data, run = (os.path.join(tmp, d) for d in ("pretrained", "songs", "run"))
-        os.makedirs(pretrained)
-        enc = random_chord_encoder(cfg, seed=5)
-        # the reference chord VAE's layout: a learner checkpoint, encoder under chord_enc.
-        torch.save({"model": {f"chord_enc.{k}": v for k, v in enc.state_dict().items()}},
-                   os.path.join(pretrained, "chd8bar.pt"))
-        write_songs(data, TRAIN_SONGS, seed=100)
-        _, val_ds = SegmentDataset.train_val_from_dir(data, 0.9)
-        val_batches = len(BatchLoader(val_ds, cfg.batch_size))
-        args = ["--model", "sdf_chd8bar", "--output_dir", run, "--data_dir", data,
-                "--pretrained_dir", pretrained, "--log_every", str(LOG_EVERY), "--seed", "0"]
-        totals = {name: 0 for name in counters}
-        for steps, extra in ((TRAIN_STEPS, []), (RESUME_STEPS, ["--resume"])):
-            for fn in counters.values():
-                fn.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state = train_main(args + ["--max_steps", str(TRAIN_STEPS + (steps if extra else 0))] + extra)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            got = {name: fn.launches for name, fn in counters.items()}
-            want = {"packed_attention": ATTENTION_SITES * (steps + val_batches),
-                    "packed_attention_bwd": ATTENTION_SITES * steps,
-                    "gn_bwd": GROUPNORM_SITES * steps}
-            log(f"[train] {'resumed ' if extra else ''}run: {steps} steps and {val_batches} val "
-                f"batches in {secs:.3f} s (with setup), launches {got}")
-            if got != want:
-                raise AssertionError(f"expected launches {want}, got {got}")
-            if state.step != TRAIN_STEPS + (steps if extra else 0):
-                raise AssertionError(f"run ended at step {state.step}")
-            for name in totals:
-                totals[name] += got[name]
-        records = [json_.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
-        train = [r for r in records if "train/loss" in r]
-        val = [r for r in records if "val/loss" in r]
-        losses = [r["train/loss"] for r in train] + [r["val/loss"] for r in val]
-        if not (train and len(val) == 2 and np.isfinite(losses).all()):
-            raise AssertionError(f"bad metrics: {records}")
-        if [r["step"] for r in val] != [TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS]:
-            raise AssertionError(f"validation steps {[r['step'] for r in val]}: the resumed run "
-                                 f"did not start at step {TRAIN_STEPS}")
-        if not os.path.getsize(os.path.join(run, "chkpts", "last.pt")):
-            raise AssertionError("no checkpoint written")
-        warm = train[-1]["steps_per_sec"]
-        log(f"[train] losses {[round(x, 5) for x in losses]}; warm window (steps "
-            f"{train[-1]['step'] - LOG_EVERY + 1}-{train[-1]['step']}): {1e3 / warm:.3f} ms/step, "
-            f"{warm:.3f} steps/s (host clock, metrics.jsonl); checkpoint "
-            f"{os.path.getsize(os.path.join(run, 'chkpts', 'last.pt')) / 2**20:.1f} MiB")
+    pretrained, data, run = (os.path.join(work, d) for d in ("pretrained", "songs", "run"))
+    os.makedirs(pretrained)
+    enc = random_chord_encoder(cfg, seed=5)
+    # the reference chord VAE's layout: a learner checkpoint, encoder under chord_enc.
+    torch.save({"model": {f"chord_enc.{k}": v for k, v in enc.state_dict().items()}},
+               os.path.join(pretrained, "chd8bar.pt"))
+    write_songs(data, TRAIN_SONGS, seed=100)
+    _, val_ds = SegmentDataset.train_val_from_dir(data, 0.9)
+    val_batches = len(BatchLoader(val_ds, cfg.batch_size))
+    args = ["--model", "sdf_chd8bar", "--output_dir", run, "--data_dir", data,
+            "--pretrained_dir", pretrained, "--log_every", str(LOG_EVERY), "--seed", "0"]
+    totals = {name: 0 for name in counters}
+    for steps, extra in ((TRAIN_STEPS, []), (RESUME_STEPS, ["--resume"])):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train_main(args + ["--max_steps", str(TRAIN_STEPS + (steps if extra else 0))] + extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = {"packed_attention": ATTENTION_SITES * (steps + val_batches),
+                "packed_attention_bwd": ATTENTION_SITES * steps,
+                "gn_bwd": GROUPNORM_SITES * steps, "repaint_epilogue": 0}
+        log(f"[train] {'resumed ' if extra else ''}run: {steps} steps and {val_batches} val "
+            f"batches in {secs:.3f} s (with setup), launches {got}")
+        if got != want:
+            raise AssertionError(f"expected launches {want}, got {got}")
+        if state.step != TRAIN_STEPS + (steps if extra else 0):
+            raise AssertionError(f"run ended at step {state.step}")
+        for name in totals:
+            totals[name] += got[name]
+    records = [json_.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+    train = [r for r in records if "train/loss" in r]
+    val = [r for r in records if "val/loss" in r]
+    losses = [r["train/loss"] for r in train] + [r["val/loss"] for r in val]
+    if not (train and len(val) == 2 and np.isfinite(losses).all()):
+        raise AssertionError(f"bad metrics: {records}")
+    if [r["step"] for r in val] != [TRAIN_STEPS, TRAIN_STEPS + RESUME_STEPS]:
+        raise AssertionError(f"validation steps {[r['step'] for r in val]}: the resumed run "
+                             f"did not start at step {TRAIN_STEPS}")
+    if not os.path.getsize(os.path.join(run, "chkpts", "last.pt")):
+        raise AssertionError("no checkpoint written")
+    warm = train[-1]["steps_per_sec"]
+    log(f"[train] losses {[round(x, 5) for x in losses]}; warm window (steps "
+        f"{train[-1]['step'] - LOG_EVERY + 1}-{train[-1]['step']}): {1e3 / warm:.3f} ms/step, "
+        f"{warm:.3f} steps/s (host clock, metrics.jsonl); checkpoint "
+        f"{os.path.getsize(os.path.join(run, 'chkpts', 'last.pt')) / 2**20:.1f} MiB")
     return totals
 
 
@@ -573,7 +713,7 @@ def drive_main_path(packed_self_attention):
 
     cfg = full_cfg(bf16=True)
     task = make_task(cfg, None, seed=0)
-    session = InferenceSession(task, ddim_steps=50, seed=0)
+    session = InferenceSession(task, sampler="ddim", ddim_steps=50, seed=0)
     rng = np.random.default_rng(0)
     total = 0
     with tempfile.TemporaryDirectory() as out_dir:
@@ -604,6 +744,133 @@ def drive_main_path(packed_self_attention):
     return total
 
 
+def midi_instruments(path: str) -> int:
+    """The instrument tracks of a .mid written by the port's ``save_midi``: a
+    format-1 file of one meta track and one track per instrument."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:4] != b"MThd":
+        raise AssertionError(f"{path} is not a MIDI file")
+    return int.from_bytes(head[10:12], "big") - 1
+
+
+def drive_inference_cli(counters, work):
+    """The inference CLI on the training path's run directory under ``work``
+    (full width, bf16: its ``params.yaml`` and ``chkpts/last.pt``, with the
+    same ``chd8bar.pt``), conditioned on one of the songs it trained on, as
+    two requests, each with the launch counts set to 0 just before it and read
+    just after: (A) the default DDPM-1000 RePaint inpainting, (B) piece-batched
+    DDIM-50 long-form generation. Returns each request's launches by kernel,
+    request A's seconds and its mask."""
+    import torch
+
+    from polyffusion_tpu_torch.data import SongNpz
+    from polyffusion_tpu_torch.diffusion.schedule import make_schedule
+    from polyffusion_tpu_torch.inference import main as infer_main
+
+    run, data, pretrained = (os.path.join(work, d) for d in ("run", "songs", "pretrained"))
+    base = ["--chkpt_path", run, "--data_dir", data, "--song_fn", CLI_SONG,
+            "--pretrained_dir", pretrained, "--uncond_scale", "5"]
+    requests = {
+        "inpainting": ["--inpaint_type", "below", "--length", str(CLI_A_SEGMENTS)],
+        "autoreg": ["--autoreg", "--ddim", "--length", str(CLI_B_SEGMENTS),
+                    "--num_generate", str(CLI_B_PIECES)],
+    }
+    windows = 2 * CLI_B_SEGMENTS - 1
+    zero = {name: 0 for name in counters}
+    want = {
+        "inpainting": dict(zero, packed_attention=ATTENTION_SITES * CLI_DDPM_STEPS,
+                           repaint_epilogue=CLI_DDPM_STEPS),
+        "autoreg": dict(zero, packed_attention=ATTENTION_SITES * CLI_DDIM_STEPS * windows),
+    }
+    want_mids = {"inpainting": 1, "autoreg": CLI_B_PIECES}
+    launches, secs, outputs = {}, {}, {}
+    for path, extra in requests.items():
+        out_dir = os.path.join(work, path)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs[path] = infer_main(base + extra + ["--output_dir", out_dir])
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+        launches[path] = {name: fn.launches for name, fn in counters.items()}
+        mids = sorted(f for f in os.listdir(out_dir) if f.endswith(".mid"))
+        log(f"[cli] request {path} ({' '.join(extra)} --uncond_scale 5): {secs[path]:.3f} s, "
+            f"launches {launches[path]}, wrote {mids}")
+        if launches[path] != want[path]:
+            raise AssertionError(f"expected launches {want[path]}, got {launches[path]}")
+        if len(mids) != want_mids[path]:
+            raise AssertionError(f"expected {want_mids[path]} .mid file(s), found {mids}")
+
+    ((gen, mask),) = outputs["inpainting"]
+    cfg = full_cfg(bf16=True)
+    sqrt_ab0 = np.float32(make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end).sqrt_alpha_bar[0])
+    orig = SongNpz(CLI_SONG, data).get_whole_song_data()[0][:CLI_A_SEGMENTS]
+    keep = mask == 1
+    known_err = float(np.abs(gen[keep] - sqrt_ab0 * orig[keep]).max())
+    (mid,) = os.listdir(os.path.join(work, "inpainting"))
+    tracks = midi_instruments(os.path.join(work, "inpainting", mid))
+    log(f"[cli] request inpainting: output {gen.shape}, kept share {keep.mean():.3f}, known "
+        f"region vs sqrt_alpha_bar[0] * orig: max_abs_err {known_err:.3g} (limit 1e-6); "
+        f"{tracks} instrument tracks")
+    if gen.shape != (CLI_A_SEGMENTS, 2, 128, 128) or not np.isfinite(gen).all():
+        raise AssertionError(f"bad inpainting output: shape {gen.shape}")
+    if not (0 < keep.mean() < 1 and known_err <= 1e-6 and tracks == 2):
+        raise AssertionError("the inpainting request did not keep the known region in a "
+                             "two-track .mid")
+    (long_form,) = outputs["autoreg"]
+    if (long_form.shape != (CLI_B_PIECES, 2 * CLI_B_SEGMENTS, 2, 64, 128)
+            or not np.isfinite(long_form).all()):
+        raise AssertionError(f"bad long-form output: shape {long_form.shape}")
+    return launches, secs["inpainting"], mask
+
+
+def profile_inpainting(work, mask, request_secs):
+    """``torch.profiler`` over PROFILE_STEPS DDPM RePaint steps at request A's
+    batch and CFG, on the weights the CLI loaded: the device's busy time per
+    step by kernel class, and from it the card's idle share in request A
+    (1 - 1000 x busy per step / request A's unprofiled seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.diffusion import sampler as S
+    from polyffusion_tpu_torch.inference import build_task_for_inference, load_unet_params
+    from polyffusion_tpu_torch.profile_unet import breakdown
+
+    run = os.path.join(work, "run")
+    task = build_task_for_inference(load_params(os.path.join(run, "params.yaml")),
+                                    os.path.join(work, "pretrained"))
+    task.load_unet_state(load_unet_params(run))
+    g = torch.Generator(device=task.device).manual_seed(7)
+    m = torch.from_numpy(nhwc(mask)).to(task.device)
+    x = torch.randn(m.shape, device=task.device, generator=g)
+    orig = (torch.rand(m.shape, device=task.device, generator=g) < 0.05).float()
+    cond = torch.randn((m.shape[0], 1, task.cfg.d_cond), device=task.device, generator=g)
+
+    def paint(steps):
+        S.ddpm_paint(task.apply_eps, task.schedule, x, cond, steps - 1, g, orig=orig, mask=m,
+                     uncond_scale=5.0, uncond_cond=-torch.ones_like(cond))
+        torch.cuda.synchronize()
+
+    paint(5)  # warm up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        paint(PROFILE_STEPS)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[profile] {PROFILE_STEPS} DDPM RePaint steps at batch {m.shape[0]}, CFG 5 "
+        f"(UNet batch {2 * m.shape[0]}), {'bf16' if task.cfg.bf16 else 'fp32'}, under "
+        f"torch.profiler:")
+    busy_ms = breakdown(prof, wall_ms, PROFILE_STEPS, "step")
+    sys.stdout.flush()
+    if busy_ms:
+        step_ms = busy_ms / PROFILE_STEPS
+        log(f"[profile] device busy {step_ms:.3f} ms per step; request A: "
+            f"{CLI_DDPM_STEPS} x {step_ms:.3f} ms busy of {request_secs:.3f} s, idle share "
+            f"{1 - CLI_DDPM_STEPS * step_ms / (request_secs * 1e3):.4f}")
+
+
 def main() -> int:
     import torch
 
@@ -615,6 +882,7 @@ def main() -> int:
     from polyffusion_tpu_torch.ops import _build
     from polyffusion_tpu_torch.ops.fused_attention import packed_attention_bwd, packed_self_attention
     from polyffusion_tpu_torch.ops.gn_bwd import group_norm_bwd
+    from polyffusion_tpu_torch.ops.repaint_epilogue import fused_repaint_epilogue
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -636,22 +904,29 @@ def main() -> int:
     rows = check_packed_attention()
     bwd_rows = check_attention_bwd()
     gn_rows = check_gn_bwd()
+    epi_rows = check_repaint_epilogue()
     check_unet_against_cpu()
     check_train_step_against_cpu()
+    check_ddpm_paint_against_cpu()
     sites = count_sites(make_task(full_cfg(bf16=True), "cpu", seed=0).unet)
     if sites != (ATTENTION_SITES, GROUPNORM_SITES):
         raise AssertionError(f"the full-width UNet has {sites} (attention, GroupNorm) sites")
 
-    # the two main paths: sampling, then training
+    # the main paths: DDIM sampling, training, then the inference CLI on the
+    # run directory the training wrote
     packed_self_attention.launches = 0
     sampling = drive_main_path(packed_self_attention)
     if sampling == 0:
         raise AssertionError("the main path never launched packed_attention")
     counters = {"packed_attention": packed_self_attention,
-                "packed_attention_bwd": packed_attention_bwd, "gn_bwd": group_norm_bwd}
-    training = drive_training_path(counters)
-    if min(training.values()) == 0:
-        raise AssertionError(f"the training path did not launch every kernel: {training}")
+                "packed_attention_bwd": packed_attention_bwd, "gn_bwd": group_norm_bwd,
+                "repaint_epilogue": fused_repaint_epilogue}
+    with tempfile.TemporaryDirectory() as work:
+        training = drive_training_path(counters, work)
+        if min(v for k, v in training.items() if k != "repaint_epilogue") == 0:
+            raise AssertionError(f"the training path did not launch every kernel: {training}")
+        cli, request_secs, mask = drive_inference_cli(counters, work)
+        profile_inpainting(work, mask, request_secs)
 
     def entry(name, source, replaces, launches, rows, main_row, errs_of):
         return {
@@ -671,14 +946,17 @@ def main() -> int:
             "shapes": rows,
         }
 
+    fwd_bf16 = [r for r in rows if r["shape"].endswith("bfloat16")]
     bf16 = [r for r in bwd_rows if r["shape"].endswith("bfloat16")]
     gn_bf16 = [r for r in gn_rows if r["shape"].endswith("bfloat16")]
     kernels = [
         # B=128 T=1024 bf16: the sampling path's dominant shape
         entry("packed_attention", "polyffusion_tpu_torch/ops/csrc/packed_attention.cu",
               "polyffusion_tpu/ops/fused_attention.py:53",
-              {"sampling": sampling, "training": training["packed_attention"]},
-              rows, rows[0], rows[:2]),
+              {"sampling": sampling, "training": training["packed_attention"],
+               "inpainting": cli["inpainting"]["packed_attention"],
+               "autoreg": cli["autoreg"]["packed_attention"]},
+              rows, rows[0], fwd_bf16),
         # B=16 T=1024 bf16: the train step's dominant shape
         entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
               "polyffusion_tpu/ops/fused_attention.py:111",
@@ -687,6 +965,11 @@ def main() -> int:
         entry("gn_bwd", "polyffusion_tpu_torch/ops/csrc/gn_bwd.cu",
               "polyffusion_tpu/ops/gn_bwd.py:66",
               {"training": training["gn_bwd"]}, gn_rows, gn_bf16[0], gn_bf16),
+        # B=2 2x128x128 fp32: request A's sampler batch
+        entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",
+              "polyffusion_tpu/ops/pallas_sampler.py:33",
+              {"inpainting": cli["inpainting"]["repaint_epilogue"]}, epi_rows, epi_rows[0],
+              epi_rows),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -115,19 +115,23 @@ def chord_encoder_state_from_jax(params: Mapping) -> StateDict:
     return out
 
 
-def load_reference_checkpoint(path: str, unet: nn.Module) -> nn.Module:
-    """Load a reference-format UNet checkpoint (legacy learner ``.pt`` with a
-    ``model`` dict, Lightning ``.ckpt`` with a ``state_dict``, or a bare state
-    dict) into ``unet`` strictly, after stripping the task prefix."""
+def reference_unet_state(path: str) -> StateDict:
+    """The UNet state dict of a reference-format checkpoint (legacy learner
+    ``.pt`` with a ``model`` dict, Lightning ``.ckpt`` with a ``state_dict``,
+    or a bare state dict), the first of ``REFERENCE_PREFIXES`` that matches
+    stripped."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("model", "state_dict"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
-    sd = obj
     for prefix in REFERENCE_PREFIXES:
         hit = {k[len(prefix):]: v for k, v in obj.items() if k.startswith(prefix)}
         if hit:
-            sd = hit
-            break
-    unet.load_state_dict(sd, strict=True)
+            return hit
+    return obj
+
+
+def load_reference_checkpoint(path: str, unet: nn.Module) -> nn.Module:
+    """Load a reference-format UNet checkpoint into ``unet`` strictly."""
+    unet.load_state_dict(reference_unet_state(path), strict=True)
     return unet

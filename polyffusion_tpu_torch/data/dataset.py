@@ -1,5 +1,5 @@
 """Song datasets over the npz format (host-side NumPy; a copy of the JAX
-package's ``data/dataset.py``, training part).
+package's ``data/dataset.py``: training items and whole songs for inference).
 
 The npz song format matches the reference's (``data/dataset.py:27-252``):
 
@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.reprs import nmat_to_pianotree_repr, nmat_to_prmat, nmat_to_prmat2c
+from ..utils.reprs import chd_to_onehot, nmat_to_pianotree_repr, nmat_to_prmat, nmat_to_prmat2c
 
 SEG_LGTH = 32  # beats per segment (8 bars of 4/4)
 N_BIN = 4  # 16th-note bins per beat
@@ -108,6 +108,27 @@ class SongNpz:
 
     def __getitem__(self, idx: int):
         return self._get_item_by_db(int(self.db_pos[idx]))
+
+    def get_whole_song_data(self):
+        """Non-overlapping 8-bar segments for whole-song inference
+        (reference ``dataset.py:227-252``); chord is one-hot (32, 36)."""
+        prmat2c, pnotree, chord, prmat = [], [], [], []
+        idx, i = 0, 0
+        while i < len(self):
+            p2c, pt, chd, pr = self[i]
+            prmat2c.append(p2c)
+            pnotree.append(pt)
+            chord.append(chd_to_onehot(chd))
+            prmat.append(pr)
+            idx += SEG_LGTH_BIN
+            while i < len(self) and self.db_pos[i] < idx:
+                i += 1
+        return (
+            np.array(prmat2c, np.float32),
+            np.array(pnotree, np.int64),
+            np.array(chord, np.float32),
+            np.array(prmat, np.float32),
+        )
 
 
 class SegmentDataset:

@@ -1,10 +1,13 @@
-"""DDIM sampling with classifier-free guidance and mask-blend inpainting
-(counterpart of the DDIM part of ``polyffusion_tpu/diffusion/sampler.py``).
+"""DDPM ancestral sampling with RePaint inpainting, DDIM, and DPM-Solver++,
+with classifier-free guidance (counterpart of
+``polyffusion_tpu/diffusion/sampler.py``).
 
-The JAX package runs the loop as one ``lax.scan``; here it is a Python loop over
-the reversed tau grid, each per-step coefficient taken from the float32 NumPy
-tables on the host. The public functions take and return NHWC tensors, as the
-JAX ones do; the UNet sees NCHW.
+The JAX package runs each loop as one ``lax.scan``; here it is a Python loop
+over the steps, each per-step coefficient taken from the float32 NumPy tables
+on the host, so that no step waits for the card. The public functions take and
+return NHWC tensors, as the JAX ones do; the UNet sees NCHW. On a CUDA tensor
+the masked DDPM body's post-eps update is the RePaint epilogue kernel
+(``ops/repaint_epilogue.py``); on a CPU tensor its plain version.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .schedule import DDIMSchedule
+from ..ops.repaint_epilogue import fused_repaint_epilogue
+from .schedule import DDIMSchedule, NoiseSchedule
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]  # (x NCHW, t, cond)
 
@@ -41,10 +45,13 @@ def _f(a) -> float:
     return float(np.float32(a))
 
 
+def _timesteps(x: torch.Tensor, step: int) -> torch.Tensor:
+    return torch.full((x.shape[0],), int(step), dtype=torch.int32, device=x.device)
+
+
 def _ddim_step(dd: DDIMSchedule, eps_fn, x, cond, step: int, index: int, noise):
     """One DDIM update on NCHW ``x``; ``noise`` is only read when sigma > 0."""
-    ts = torch.full((x.shape[0],), int(step), dtype=torch.int32, device=x.device)
-    e_t = eps_fn(x, ts, cond).to(x.dtype)
+    e_t = eps_fn(x, _timesteps(x, step), cond).to(x.dtype)
     one = np.float32(1.0)
     alpha, alpha_prev, sigma = dd.alpha[index], dd.alpha_prev[index], dd.sigma[index]
     pred_x0 = (x - _f(dd.sqrt_one_minus_alpha[index]) * e_t) / _f(np.sqrt(alpha))
@@ -71,6 +78,109 @@ def _step_noise(noise_override, k: int, shape, generator, device):
     if noise_override is not None:
         return lambda: _nchw(noise_override[k])
     return lambda: torch.randn(shape, generator=generator, device=device)
+
+
+def _ddpm_step(sch: NoiseSchedule, eps_fn, x, cond, step: int, noise):
+    """One ancestral step x_t -> x_{t-1} on NCHW ``x`` (SDFSampler.p_sample);
+    ``noise`` is only read when step > 0."""
+    e_t = eps_fn(x, _timesteps(x, step), cond).to(x.dtype)
+    x0 = _f(sch.sqrt_recip_alpha_bar[step]) * x - _f(sch.sqrt_recip_m1_alpha_bar[step]) * e_t
+    mean = _f(sch.mean_x0_coef[step]) * x0 + _f(sch.mean_xt_coef[step]) * x
+    if step == 0:
+        return mean
+    return mean + _f(np.exp(np.float32(0.5) * sch.log_var[step])) * noise()
+
+
+def ddpm_sample(
+    apply_fn: EpsFn,
+    schedule: NoiseSchedule,
+    x_last: torch.Tensor,
+    cond: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    uncond_scale: float = 1.0,
+    uncond_cond: Optional[torch.Tensor] = None,
+    t_start: int = 0,
+    noise_override: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full ancestral DDPM sampling from step T-1-t_start down to 0, NHWC in
+    and out. ``noise_override``: (S, B, H, W, C) per-step noises for replay."""
+    return ddpm_paint(
+        apply_fn, schedule, x_last, cond, schedule.n_steps - 1 - t_start, generator,
+        uncond_scale=uncond_scale, uncond_cond=uncond_cond, noise_override=noise_override,
+    )
+
+
+def _epilogue_scalars(sch: NoiseSchedule, step: int):
+    """The epilogue's a..g at ``step``; e and g are 0 at step 0, where the
+    ancestral step and the known region take no noise."""
+    return (
+        _f(sch.sqrt_recip_alpha_bar[step]),
+        _f(sch.sqrt_recip_m1_alpha_bar[step]),
+        _f(sch.mean_x0_coef[step]),
+        _f(sch.mean_xt_coef[step]),
+        _f(np.exp(np.float32(0.5) * sch.log_var[step])) if step > 0 else 0.0,
+        _f(sch.sqrt_alpha_bar[step]),
+        _f(sch.sqrt_1m_alpha_bar[step]) if step > 0 else 0.0,
+    )
+
+
+@torch.inference_mode()
+def ddpm_paint(
+    apply_fn: EpsFn,
+    schedule: NoiseSchedule,
+    x: torch.Tensor,
+    cond: torch.Tensor,
+    t_start: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    orig: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    uncond_scale: float = 1.0,
+    uncond_cond: Optional[torch.Tensor] = None,
+    repaint_n: int = 1,
+    noise_override: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """RePaint inpainting from step ``t_start`` down to 0 (SDFSampler.paint),
+    NHWC in and out.
+
+    Per step, ``repaint_n`` times: the ancestral update of the unknown region
+    and ``q_sample(orig, step)`` of the known one (mask == 1), blended by the
+    epilogue; between inner iterations a one-step re-noise back,
+    ``sqrt(1 - beta) x + beta * noise`` (the reference's beta, not sqrt(beta)).
+    With ``orig is None`` this is plain conditional generation from ``x``.
+    ``noise_override``: (S, B, H, W, C) noises when ``orig is None``, else
+    (S, repaint_n, 3, B, H, W, C) noises [q, p, renoise]."""
+    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    steps = range(t_start, -1, -1)
+    if orig is None:
+        xc = _nchw(x)
+        for k, step in enumerate(steps):
+            noise = _step_noise(noise_override, k, xc.shape, generator, xc.device)
+            xc = _ddpm_step(schedule, eps_fn, xc, cond, step, noise)
+        return _nhwc(xc).contiguous()
+
+    if mask is None:
+        raise ValueError("ddpm_paint: orig needs a mask")
+    # the epilogue reads raw pointers: every operand contiguous NCHW, once
+    xc, orig, mask = (_nchw(v).contiguous() for v in (x, orig, mask))
+    nshape = (repaint_n, 3, *xc.shape)
+    for k, step in enumerate(steps):
+        if noise_override is None:
+            nz = torch.randn(nshape, generator=generator, device=xc.device, dtype=xc.dtype)
+        else:
+            nz = noise_override[k].permute(0, 1, 2, 5, 3, 4).contiguous()
+        scalars = _epilogue_scalars(schedule, step)
+        ts = _timesteps(xc, step)
+        for u in range(repaint_n):
+            e_t = eps_fn(xc, ts, cond).to(xc.dtype).contiguous()
+            x_out = fused_repaint_epilogue(xc, e_t, nz[u, 1], orig, nz[u, 0], mask, scalars)
+            if u < repaint_n - 1 and step > 0:
+                beta = schedule.beta[step - 1]
+                xc = _f((np.float32(1.0) - beta) ** np.float32(0.5)) * x_out + _f(beta) * nz[u, 2]
+            else:
+                xc = x_out
+    return _nhwc(xc).contiguous()
 
 
 @torch.inference_mode()
@@ -137,3 +247,94 @@ def ddim_paint(
             orig_t = ddim_q_sample(dd, orig, index, orig_noise)
             xc = orig_t * mask + xc * (1.0 - mask)
     return _nhwc(xc).contiguous()
+
+
+def _dpmpp_tables(dd: DDIMSchedule):
+    """Per-index (a, s, a_prev, s_prev, h), float32, from lambda-space in
+    float64 on the host: a = sqrt(alpha_bar), s = sqrt(1 - alpha_bar),
+    h = lambda_prev - lambda with lambda = log(a / s)."""
+    a2 = dd.alpha.astype(np.float64)
+    ap2 = dd.alpha_prev.astype(np.float64)
+    a_t, s_t = np.sqrt(a2), np.sqrt(1.0 - a2)
+    a_p, s_p = np.sqrt(ap2), np.sqrt(1.0 - ap2)
+    h_t = np.log(a_p / s_p) - np.log(a_t / s_t)
+    return tuple(v.astype(np.float32) for v in (a_t, s_t, a_p, s_p, h_t))
+
+
+@torch.inference_mode()
+def dpmpp_paint(
+    apply_fn: EpsFn,
+    dd: DDIMSchedule,
+    x: torch.Tensor,
+    cond: torch.Tensor,
+    t_start: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    orig: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    orig_noise: Optional[torch.Tensor] = None,
+    uncond_scale: float = 1.0,
+    uncond_cond: Optional[torch.Tensor] = None,
+    order: int = 2,
+) -> torch.Tensor:
+    """DPM-Solver++ multistep ODE sampling (Lu et al., arXiv:2211.01095,
+    "2M") over the DDIM tau grid from tau_{t_start} down, NHWC in and out.
+
+    One transition is ``x <- (s_prev / s) x - a_prev expm1(-h) D``, where D is
+    the x0 prediction (``order`` 1, the DDIM eta = 0 update) or, from the
+    second transition on, ``(1 + 1/(2r)) x0 - 1/(2r) x0_prev`` with
+    r = h_prev / h (``order`` 2). Deterministic: ``generator`` only draws
+    ``orig_noise`` when a mask is given without one. Masked inpainting blends
+    in ``q_sample(orig, index)`` under the fixed ``orig_noise`` after each
+    transition, as ``ddim_paint`` does; the x0 history follows the blended
+    trajectory."""
+    if order not in (1, 2):
+        raise ValueError(f"dpmpp order must be 1 or 2, got {order}")
+    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    a_t, s_t, a_p, s_p, h_t = _dpmpp_tables(dd)
+    xc = _nchw(x)
+    masked = orig is not None
+    if masked:
+        if mask is None:
+            raise ValueError("dpmpp_paint: orig needs a mask")
+        if orig_noise is None:
+            orig_noise = torch.randn(orig.shape, generator=generator, device=orig.device)
+        orig, mask, orig_noise = _nchw(orig), _nchw(mask), _nchw(orig_noise)
+    steps = dd.time_steps[: t_start + 1][::-1]
+    n = len(steps)
+    x0_prev, h_prev = None, None
+    for k, (step, index) in enumerate(zip(steps, range(n - 1, -1, -1))):
+        e_t = eps_fn(xc, _timesteps(xc, step), cond).to(xc.dtype)
+        x0 = (xc - _f(s_t[index]) * e_t) / _f(a_t[index])
+        h = h_t[index]
+        if order == 2 and k > 0:
+            c = np.float32(0.5) / (h_prev / h)
+            d = _f(np.float32(1.0) + c) * x0 - _f(c) * x0_prev
+        else:
+            d = x0
+        xc = _f(s_p[index] / s_t[index]) * xc - _f(a_p[index] * np.expm1(-h)) * d
+        if masked:
+            orig_t = ddim_q_sample(dd, orig, index, orig_noise)
+            xc = orig_t * mask + xc * (1.0 - mask)
+        x0_prev, h_prev = x0, h
+    return _nhwc(xc).contiguous()
+
+
+def dpmpp_sample(
+    apply_fn: EpsFn,
+    dd: DDIMSchedule,
+    x_last: torch.Tensor,
+    cond: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    uncond_scale: float = 1.0,
+    uncond_cond: Optional[torch.Tensor] = None,
+    t_start: int = 0,
+    order: int = 2,
+) -> torch.Tensor:
+    """Plain DPM-Solver++ generation over the reversed tau grid; ``t_start``
+    skips leading transitions as in ``ddim_sample``."""
+    return dpmpp_paint(
+        apply_fn, dd, x_last, cond, dd.n_steps - 1 - t_start, generator,
+        uncond_scale=uncond_scale, uncond_cond=uncond_cond, order=order,
+    )

@@ -1,24 +1,41 @@
-"""Generation and inpainting (counterpart of ``polyffusion_tpu/inference.py``:
-``get_mask`` and the DDIM path of ``InferenceSession``).
+"""Generation, inpainting and long-form generation, and the inference CLI
+(counterpart of ``polyffusion_tpu/inference.py``):
 
-``predict`` keeps the JAX package's layouts: conditions (B, 1, d_cond), images
-(B, 2, H, W) in and out, optional starting ``noise`` NHWC (B, H, W, C).
+    python -m polyffusion_tpu_torch.inference --chkpt_path <run dir or .pt> \\
+        --data_dir <npz dir> --song_fn <song.npz> [--inpaint_type below] \\
+        [--autoreg] [--ddim | --dpmpp] [--uncond_scale 5] --output_dir gen/
+
+The sampler is DDPM (all of the schedule's steps, RePaint inpainting) unless
+``--ddim`` or ``--dpmpp`` asks for a tau-grid one. ``predict`` keeps the JAX
+package's layouts and argument order: conditions (B, 1, d_cond), images
+(B, 2, H, W) in and out, optional starting ``noise`` NHWC (B, H, W, C); with
+``autoreg`` and a pieces axis, conditions (P, B, 1, d_cond) and output
+(P, 2B, C, H/2, W). Runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import pickle
 from datetime import datetime
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .config import Params, load_params
+from .convert import reference_unet_state
+from .data.dataset import SongNpz
 from .device import DeviceLike, resolve_device
-from .diffusion.sampler import ddim_paint, ddim_q_sample
+from .diffusion import sampler as S
+from .diffusion.gaussian import q_sample_step
 from .diffusion.schedule import make_ddim_schedule
+from .models.encoders import build_frozen_encoders
 from .tasks.sdf import SDFTask
 from .utils.midi_io import prmat2c_to_midi_file
+
+SAMPLERS = ("ddpm", "ddim", "dpmpp")
 
 
 def _forward_fill(vals: np.ndarray, empty_marker: int) -> np.ndarray:
@@ -57,49 +74,161 @@ def get_mask(orig: np.ndarray, inpaint_type: str, bar_list=None) -> np.ndarray:
     raise NotImplementedError(inpaint_type)
 
 
+def get_autoreg_data(data, axis: int, seg_axis: int = 0) -> torch.Tensor:
+    """The 4-bar-overlap "mid" segments: (second half | next segment's first
+    half) along ``axis`` (reference inference_sdf.py:121-129). ``seg_axis``
+    is the 8-bar-segment axis (0 for per-piece arrays, 1 for piece-major
+    (P, B, ...) stacks). Takes an array or a tensor, returns a tensor on the
+    same device."""
+    data = torch.as_tensor(data)
+    half1, half2 = data.chunk(2, dim=axis)
+    return torch.cat([half2, half1.roll(-1, seg_axis)], dim=axis)
+
+
+# -- checkpoints ------------------------------------------------------------------
+
+
+def load_unet_params(chkpt_path: str, use_ema: bool = False):
+    """The fp32 UNet state dict of a checkpoint, for ``SDFTask.load_unet_state``:
+
+    - a run directory of the port's trainer (``params.yaml``, ``chkpts/last.pt``):
+      its ``params``, or with ``use_ema`` its EMA branch (raises when the run
+      kept none);
+    - a reference-format ``.pt`` / ``.ckpt`` (``convert.reference_unet_state``,
+      which strips the first task prefix that matches).
+
+    JAX orbax run directories are not read yet (ROADMAP.md item 15)."""
+    if os.path.isdir(chkpt_path):
+        last = os.path.join(chkpt_path, "chkpts", "last.pt")
+        if not os.path.exists(last):
+            raise NotImplementedError(
+                f"{chkpt_path} has no chkpts/last.pt: it is not a run directory of the "
+                "port's trainer (JAX orbax run directories are ROADMAP.md item 15)"
+            )
+        ckpt = torch.load(last, map_location="cpu", weights_only=True)
+        if use_ema:
+            if ckpt.get("ema") is None:
+                raise ValueError("--use_ema: this run has no EMA branch (train with ema_decay)")
+            return ckpt["ema"]
+        return ckpt["params"]
+    if use_ema:
+        raise ValueError(
+            "--use_ema needs a run directory (reference checkpoints carry no EMA branch)"
+        )
+    return reference_unet_state(chkpt_path)
+
+
+# -- the session --------------------------------------------------------------------
+
+
 class InferenceSession:
-    """A task plus the DDIM sampler, answering generate / inpaint requests."""
+    """A task plus a sampler choice, answering generate / inpaint requests."""
 
     def __init__(
         self,
         task: SDFTask,
         *,
+        use_ddim: bool = False,
         ddim_steps: int = 50,
         ddim_eta: float = 0.0,
         ddim_discretize: str = "uniform",
+        sampler: Optional[str] = None,
+        dpm_order: int = 2,
+        repaint_n: int = 1,
         seed: int = 0,
         device: DeviceLike = None,
     ):
+        """``sampler``: "ddpm" (ancestral, over all of the schedule's steps,
+        with RePaint inpainting), "ddim" or "dpmpp" (DPM-Solver++ on the DDIM
+        tau grid); by default "ddim" if ``use_ddim`` else "ddpm", as in the
+        JAX package."""
         self.device = resolve_device(device)
         if self.device != task.device:
             raise ValueError(f"task lies on {task.device}, session asked for {self.device}")
+        if sampler is None:
+            sampler = "ddim" if use_ddim else "ddpm"
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}")
         self.task = task
         self.cfg = task.cfg
         self.schedule = task.schedule
-        self.ddim = make_ddim_schedule(self.schedule, ddim_steps, ddim_discretize, ddim_eta)
-        self.ddim_label = f"ddim{ddim_steps}_eta{ddim_eta}_{ddim_discretize}"
+        self.sampler_kind = sampler
+        self.dpm_order = dpm_order
+        self.use_ddim = sampler in ("ddim", "dpmpp")  # tau-grid samplers
+        self.repaint_n = repaint_n
+        self.ddim = (
+            make_ddim_schedule(self.schedule, ddim_steps, ddim_discretize, ddim_eta)
+            if self.use_ddim
+            else None
+        )
+        self.ddim_label = (
+            f"dpmpp{dpm_order}m_{ddim_steps}_{ddim_discretize}"
+            if sampler == "dpmpp"
+            else f"ddim{ddim_steps}_eta{ddim_eta}_{ddim_discretize}"
+        )
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     @property
     def t_idx(self) -> int:
-        return self.ddim.n_steps - 1
+        return (self.ddim.n_steps if self.use_ddim else self.schedule.n_steps) - 1
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32).to(self.device)
 
+    def _q_sample_start(self, orig_nhwc, noise):
+        if self.use_ddim:
+            return S.ddim_q_sample(self.ddim, orig_nhwc, self.t_idx, noise)
+        return q_sample_step(self.schedule, orig_nhwc, self.t_idx, noise)
+
+    def _paint(self, x, cond, orig, mask, orig_noise, uncond_cond, uncond_scale: float):
+        """The sampler from ``t_idx`` down, NHWC in and out. DDPM re-noises the
+        known region with fresh noise at every step (it reads no
+        ``orig_noise``); the tau-grid samplers with ``orig_noise``."""
+        common = dict(orig=orig, mask=mask, uncond_scale=uncond_scale, uncond_cond=uncond_cond)
+        if self.sampler_kind == "dpmpp":
+            return S.dpmpp_paint(self.task.apply_eps, self.ddim, x, cond, self.t_idx,
+                                 self.generator, orig_noise=orig_noise, order=self.dpm_order,
+                                 **common)
+        if self.sampler_kind == "ddim":
+            return S.ddim_paint(self.task.apply_eps, self.ddim, x, cond, self.t_idx,
+                                self.generator, orig_noise=orig_noise, **common)
+        return S.ddpm_paint(self.task.apply_eps, self.schedule, x, cond, self.t_idx,
+                            self.generator, repaint_n=self.repaint_n, **common)
+
     def predict(
         self,
         cond,
+        cond_mid=None,
         uncond_scale: float = 1.0,
+        autoreg: bool = False,
         orig: Optional[np.ndarray] = None,
         mask: Optional[np.ndarray] = None,
         noise=None,
     ) -> np.ndarray:
         """Generate (or, with ``orig`` and ``mask``, inpaint) (B, 2, H, W) images.
 
-        Starts from q_sample(orig, tau_last) and paints with ``mask`` (all zero
-        for plain generation) under the same noise. ``noise``: optional explicit
-        NHWC starting noise; drawn from the session's generator when omitted."""
+        Starts from q_sample(orig, t_idx) and paints with ``mask`` (all zero
+        for plain generation); the starting ``noise`` (NHWC, drawn from the
+        session's generator when omitted) is also the tau-grid samplers'
+        fixed ``orig_noise``. With ``autoreg``: 2B-1 sliding 8-bar windows,
+        each forcing its first 4 bars to the previous window's last 4
+        (``cond_mid`` holds the B-1 mid-window conditions); a leading pieces
+        axis on ``cond`` runs P pieces at batch P (``_predict_autoreg``)."""
+        if autoreg:
+            if cond_mid is None:
+                raise ValueError("autoreg needs the mid-window conditions")
+            if np.ndim(cond) == 4:  # (P, B, 1, d): piece-batched
+                return self._predict_autoreg(cond, cond_mid, uncond_scale, orig, mask, noise)
+            out = self._predict_autoreg(
+                self._tensor(cond)[None],
+                self._tensor(cond_mid)[None],
+                uncond_scale,
+                None if orig is None else np.asarray(orig)[None],
+                None if mask is None else np.asarray(mask)[None],
+                None if noise is None else self._tensor(noise)[None],
+            )
+            return out[0]
+
         cond = self._tensor(cond)
         b = cond.shape[0]
         h, w, c = self.cfg.img_h, self.cfg.img_w, self.cfg.out_channels
@@ -112,41 +241,89 @@ class InferenceSession:
         if noise is None:
             noise = torch.randn((b, h, w, c), generator=self.generator, device=self.device)
         noise = self._tensor(noise)
-        xt = ddim_q_sample(self.ddim, orig_nhwc, self.t_idx, noise)
-        gen = ddim_paint(
-            self.task.apply_eps,
-            self.ddim,
-            xt,
-            cond,
-            self.t_idx,
-            self.generator,
-            orig=orig_nhwc,
-            mask=mask_nhwc,
-            orig_noise=noise,
-            uncond_scale=uncond_scale,
-            uncond_cond=uncond_cond,
-        )
+        xt = self._q_sample_start(orig_nhwc, noise)
+        gen = self._paint(xt, cond, orig_nhwc, mask_nhwc, noise, uncond_cond, uncond_scale)
         return gen.permute(0, 3, 1, 2).cpu().numpy()
 
-    def _stamp(self, head: str, uncond_scale: float) -> str:
+    def _predict_autoreg(self, conds, cond_mids, uncond_scale: float, origs=None, masks=None,
+                         noise=None) -> np.ndarray:
+        """Piece-batched sliding-window generation.
+
+        ``conds``: (P, B, 1, d_cond); ``cond_mids``: (P, B-1, 1, d_cond);
+        ``origs`` / ``masks``: optional (P, B, C, H, W); ``noise``: optional
+        (P, B, H, W, C). The windows of a piece are sequential (each forces
+        its first half to the previous window's output); the P pieces ride
+        each window together at batch P. Everything stays on the device until
+        the one pull at the end. Returns (P, 2B, C, H/2, W)."""
+        conds, cond_mids = self._tensor(conds), self._tensor(cond_mids)
+        p, b = conds.shape[:2]
+        h, w, c = self.cfg.img_h, self.cfg.img_w, self.cfg.out_channels
+        half = h // 2
+        if origs is None or masks is None:
+            origs = np.zeros((p, b, c, h, w), np.float32)
+            masks = np.zeros_like(origs)
+        orig = self._tensor(origs).permute(0, 1, 3, 4, 2)  # (P, B, H, W, C)
+        mask = self._tensor(masks).permute(0, 1, 3, 4, 2)
+        if noise is None:
+            noise = torch.randn((p, b, h, w, c), generator=self.generator, device=self.device)
+        noise = self._tensor(noise)
+        # mid windows: time axis 2, segment axis 1 (piece-major)
+        orig_mid, mask_mid, noise_mid = (get_autoreg_data(v, axis=2, seg_axis=1)
+                                         for v in (orig, mask, noise))
+        uncond = -torch.ones((p, 1, self.cfg.d_cond), device=self.device)
+
+        gen = []  # (P, half, W, C) tensors on the device
+        prev_half = None
+        for idx in range(2 * b - 1):
+            j = idx // 2
+            if idx % 2:
+                cw, o, m, nz = cond_mids[:, j], orig_mid[:, j], mask_mid[:, j], noise_mid[:, j]
+            else:
+                cw, o, m, nz = conds[:, j], orig[:, j], mask[:, j], noise[:, j]
+            if idx:
+                # the stacks are read again by later windows: write into copies
+                o, m = o.clone(), m.clone()
+                o[:, :half] = prev_half
+                m[:, :half] = 1.0
+            xt = self._q_sample_start(o, nz)
+            x0 = self._paint(xt, cw, o, m, nz, uncond, uncond_scale)
+            if idx == 0:
+                gen.append(x0[:, :half])
+            prev_half = x0[:, half:]
+            gen.append(prev_half)
+        return torch.stack(gen, dim=1).permute(0, 1, 4, 2, 3).cpu().numpy()
+
+    # -- user-facing ops --------------------------------------------------------
+
+    def _stamp(self, head: str, uncond_scale: float, autoreg: bool) -> str:
         return (
-            f"{head}[scale={uncond_scale},{self.ddim_label}]"
+            f"{head}[scale={uncond_scale}"
+            f"{',autoreg' if autoreg else ''}"
+            f"{',' + self.ddim_label if self.use_ddim else ''}]"
             f"_{datetime.now().strftime('%y-%m-%d_%H%M%S')}"
         )
 
     def generate(
         self,
         cond,
+        cond_mid=None,
         uncond_scale: float = 1.0,
+        autoreg: bool = False,
         output_dir: Optional[str] = None,
         model_label: str = "sdf",
+        no_output: bool = False,
     ) -> np.ndarray:
-        """(B, 2, H, W) prmat2c images; with ``output_dir``, also one .mid."""
-        gen = self.predict(cond, uncond_scale)
-        if output_dir:
+        """Generated prmat2c images; with ``output_dir``, also one .mid per
+        piece (5-D piece-batched output) or one for the batch."""
+        gen = self.predict(cond, cond_mid, uncond_scale, autoreg)
+        if not no_output and output_dir:
+            stamp = self._stamp(model_label, uncond_scale, autoreg)
             os.makedirs(output_dir, exist_ok=True)
-            path = os.path.join(output_dir, self._stamp(model_label, uncond_scale) + ".mid")
-            prmat2c_to_midi_file(gen, path)
+            if gen.ndim == 5:
+                for p in range(gen.shape[0]):
+                    prmat2c_to_midi_file(gen[p], os.path.join(output_dir, f"{stamp}_{p}.mid"))
+            else:
+                prmat2c_to_midi_file(gen, os.path.join(output_dir, f"{stamp}.mid"))
         return gen
 
     def inpaint(
@@ -154,17 +331,175 @@ class InferenceSession:
         orig: np.ndarray,
         inpaint_type: str,
         cond,
+        cond_mid=None,
+        autoreg: bool = False,
         uncond_scale: float = 1.0,
         bar_list=None,
         output_dir: Optional[str] = None,
         model_label: str = "sdf",
+        no_output: bool = False,
     ):
         """Regenerate the region ``get_mask`` leaves free; returns (gen, mask)."""
         mask = get_mask(orig, inpaint_type, bar_list)
-        gen = self.predict(cond, uncond_scale, orig, mask)
-        if output_dir:
+        gen = self.predict(cond, cond_mid, uncond_scale, autoreg, orig, mask)
+        if not no_output and output_dir:
+            head = f"{model_label}_inp{self.repaint_n}_{inpaint_type}"
             os.makedirs(output_dir, exist_ok=True)
-            head = f"{model_label}_inp_{inpaint_type}"
-            path = os.path.join(output_dir, self._stamp(head, uncond_scale) + ".mid")
+            path = os.path.join(output_dir, self._stamp(head, uncond_scale, autoreg) + ".mid")
             prmat2c_to_midi_file(gen, path, inp_mask=mask)
         return gen, mask
+
+
+# -- conditions from data ------------------------------------------------------------
+
+
+def song_conditions(task: SDFTask, song_data, length: int = 0, autoreg: bool = False):
+    """Whole-song (prmat2c, pnotree, chord, prmat) -> (cond, cond_mid,
+    prmat2c), the conditions as NumPy (N, 1, d) without CFG dropout; cond_mid
+    (the mid windows' conditions) only with ``autoreg``."""
+    prmat2c, pnotree, chord, prmat = song_data
+    if length and length > 0:
+        prmat2c, pnotree, chord, prmat = (v[:length] for v in (prmat2c, pnotree, chord, prmat))
+
+    def encode(chd):
+        return task.encode_cond((None, None, torch.as_tensor(chd), None)).cpu().numpy()
+
+    cond = encode(chord)
+    cond_mid = encode(get_autoreg_data(chord, axis=1)) if autoreg else None
+    return cond, cond_mid, np.asarray(prmat2c)
+
+
+def build_task_for_inference(cfg: Params, pretrained_dir: Optional[str] = None,
+                             device: DeviceLike = None) -> SDFTask:
+    """The task of ``cfg`` with its frozen encoders from ``pretrained_dir``;
+    its UNet weights come from ``load_unet_params``."""
+    if cfg.get("model_name") == "ddpm":
+        raise NotImplementedError(
+            "model_name ddpm (the plain DDPM family) is not ported yet (ROADMAP.md item 10)"
+        )
+    encoders = build_frozen_encoders(cfg, pretrained_dir)
+    return SDFTask(cfg, encoders.get("chord_enc"), device=device)
+
+
+# -- CLI ------------------------------------------------------------------------------
+
+
+def main(argv=None):
+    """The CLI. Returns what it generated: a list with one entry per
+    ``--num_generate`` (``generate``'s array, or ``inpaint``'s (gen, mask)),
+    or one piece-batched array; ``None`` for ``--split_inpaint``."""
+    p = argparse.ArgumentParser(description="polyffusion_tpu_torch generation / inpainting")
+    p.add_argument("--model", default=None,
+                   help="params preset name or yaml (default: the run dir's params.yaml, "
+                   "else sdf_chd8bar)")
+    p.add_argument("--chkpt_path", required=True,
+                   help="run dir of the port's trainer, or a reference .pt/.ckpt")
+    p.add_argument("--uncond_scale", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--length", type=int, default=0, help="number of 8-bar segments (0 = whole song)")
+    p.add_argument("--num_generate", type=int, default=1)
+    p.add_argument("--autoreg", action="store_true")
+    p.add_argument("--ddim", action="store_true")
+    p.add_argument("--ddim_steps", type=int, default=50, help="tau grid size")
+    p.add_argument("--ddim_eta", type=float, default=0.0)
+    p.add_argument("--ddim_discretize", default="uniform", choices=["uniform", "quad"])
+    p.add_argument("--dpmpp", action="store_true",
+                   help="DPM-Solver++ multistep ODE sampler on the tau grid (--ddim_steps)")
+    p.add_argument("--dpm_order", type=int, default=2, choices=[1, 2])
+    p.add_argument("--repaint_n", type=int, default=1)
+    p.add_argument("--inpaint_type", default=None, choices=[None, "remaining", "below", "above", "bars"])
+    p.add_argument("--bar_list", default=None, help="comma-separated bars for --inpaint_type bars")
+    p.add_argument("--data_dir", required=True, help="npz dir for conditioning/inpainting source")
+    p.add_argument("--song_fn", default=None, help="song npz filename")
+    p.add_argument("--split_file", default=None, help="pickled (train, val) split; choose from val")
+    p.add_argument("--song_index", type=int, default=0, help="index into the val split")
+    p.add_argument("--inpaint_song_fn", default=None, help="npz song (in --data_dir) to be inpainted")
+    p.add_argument("--pretrained_dir", default=None, help="dir with pretrained encoder checkpoints")
+    p.add_argument("--output_dir", default="exp")
+    p.add_argument("--split_inpaint", action="store_true",
+                   help="only split the source prmat2c by the inpainting mask into a two-track "
+                   "MIDI and exit")
+    p.add_argument("--use_ema", action="store_true",
+                   help="sample from the EMA parameter branch (runs trained with ema_decay)")
+    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = p.parse_args(argv)
+
+    run_params = os.path.join(args.chkpt_path, "params.yaml")
+    if args.model is None and os.path.isdir(args.chkpt_path) and os.path.exists(run_params):
+        cfg = load_params(run_params)
+    else:
+        cfg = load_params(args.model or "sdf_chd8bar")
+    task = build_task_for_inference(cfg, args.pretrained_dir, device=args.device)
+    task.load_unet_state(load_unet_params(args.chkpt_path, use_ema=args.use_ema))
+    session = InferenceSession(
+        task,
+        use_ddim=args.ddim,
+        ddim_steps=args.ddim_steps,
+        ddim_eta=args.ddim_eta,
+        ddim_discretize=args.ddim_discretize,
+        sampler="dpmpp" if args.dpmpp else None,
+        dpm_order=args.dpm_order,
+        repaint_n=args.repaint_n,
+        seed=args.seed,
+        device=args.device,
+    )
+
+    song_fn = args.song_fn
+    if song_fn is None and args.split_file:
+        with open(args.split_file, "rb") as f:
+            split = pickle.load(f)
+        song_fn = split[1][args.song_index]
+    if not song_fn:
+        raise SystemExit("--song_fn or --split_file is required")
+    song_data = SongNpz(song_fn, args.data_dir).get_whole_song_data()
+    cond, cond_mid, prmat2c = song_conditions(task, song_data, args.length, args.autoreg)
+
+    if args.inpaint_song_fn:
+        prmat2c_inp = SongNpz(args.inpaint_song_fn, args.data_dir).get_whole_song_data()[0]
+        n = min(len(cond), prmat2c_inp.shape[0])
+        cond, prmat2c = cond[:n], prmat2c_inp[:n]
+        if cond_mid is not None:
+            cond_mid = cond_mid[: max(n - 1, 0)]
+
+    label = cfg.get("model_name", "sdf")
+    bar_list = [int(x) for x in args.bar_list.split(",")] if args.bar_list else None
+
+    if args.split_inpaint:
+        if not args.inpaint_type:
+            raise SystemExit("--split_inpaint requires --inpaint_type")
+        mask = get_mask(prmat2c, args.inpaint_type, bar_list)
+        os.makedirs(args.output_dir, exist_ok=True)
+        out = os.path.join(args.output_dir, f"{label}_split_{args.inpaint_type}.mid")
+        prmat2c_to_midi_file(prmat2c, out, inp_mask=mask)
+        print(f"split written to {out}")
+        return None
+
+    # piece-batched long-form: N independent pieces ride the same 2B-1 windows
+    # at batch N in one pass (the reference's --num_generate loop is serial)
+    if args.autoreg and args.num_generate > 1 and not args.inpaint_type:
+        conds = np.broadcast_to(cond[None], (args.num_generate,) + cond.shape).copy()
+        cond_mids = np.broadcast_to(cond_mid[None], (args.num_generate,) + cond_mid.shape).copy()
+        gen = session.generate(conds, cond_mids, uncond_scale=args.uncond_scale, autoreg=True,
+                               output_dir=args.output_dir, model_label=label)
+        print(f"wrote {args.num_generate} output(s) to {args.output_dir} (piece-batched)")
+        return [gen]
+
+    outputs = []
+    for _ in range(args.num_generate):
+        if args.inpaint_type:
+            outputs.append(session.inpaint(
+                prmat2c, args.inpaint_type, cond, cond_mid, autoreg=args.autoreg,
+                uncond_scale=args.uncond_scale, bar_list=bar_list,
+                output_dir=args.output_dir, model_label=label,
+            ))
+        else:
+            outputs.append(session.generate(
+                cond, cond_mid, uncond_scale=args.uncond_scale, autoreg=args.autoreg,
+                output_dir=args.output_dir, model_label=label,
+            ))
+    print(f"wrote {args.num_generate} output(s) to {args.output_dir}")
+    return outputs
+
+
+if __name__ == "__main__":
+    main()

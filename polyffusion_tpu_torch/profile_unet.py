@@ -23,6 +23,7 @@ from .tasks import SDFTask
 
 # kernel-name fragments -> class, first match wins
 CLASSES = (
+    ("repaint_epilogue", "repaint_epilogue (this port's kernel)"),
     ("attn_bwd", "packed_attention_bwd (this port's kernel)"),
     ("gn_bwd", "gn_bwd (this port's kernel)"),
     ("packed_attention", "packed_attention (this port's kernel)"),
@@ -87,9 +88,10 @@ def main() -> None:
     breakdown(prof, wall_ms, EVALS, "eval")
 
 
-def breakdown(prof, wall_ms: float, n: int, unit: str) -> None:
+def breakdown(prof, wall_ms: float, n: int, unit: str) -> float:
     """Prints the device time of a profiled window of ``n`` units (evals,
-    steps) by kernel class and the top kernels, and the window's idle share."""
+    steps) by kernel class and the top kernels, and the window's idle share.
+    Returns the device's busy ms in the window (0 when none was recorded)."""
     by_class, by_kernel, counts = defaultdict(float), defaultdict(float), defaultdict(int)
     for evt in prof.key_averages():
         # kernels only: operators, autograd nodes and annotated ranges (such as
@@ -105,7 +107,7 @@ def breakdown(prof, wall_ms: float, n: int, unit: str) -> None:
     busy_ms = sum(by_class.values()) / 1e3
     if busy_ms == 0:
         print("profiler recorded no device time: only the CUDA-event time above holds")
-        return
+        return 0.0
     print(f"profiled window: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}")
     if busy_ms > wall_ms:
@@ -116,6 +118,7 @@ def breakdown(prof, wall_ms: float, n: int, unit: str) -> None:
     print(f"top kernels (ms per {unit}, launches per {unit}):")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {us / 1e3 / n:9.3f} ms  {counts[name] // n:4d}  {name[:110]}")
+    return busy_ms
 
 
 if __name__ == "__main__":

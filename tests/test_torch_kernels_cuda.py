@@ -18,12 +18,20 @@ from polyffusion_tpu_torch.ops.fused_attention import (
     packed_attention_reference,
     packed_self_attention,
 )
+from polyffusion_tpu_torch.config import load_params
+from polyffusion_tpu_torch.diffusion.sampler import _epilogue_scalars
+from polyffusion_tpu_torch.diffusion.schedule import make_schedule
 from polyffusion_tpu_torch.ops.gn_bwd import gn_bwd_reference, gn_primal, group_norm_bwd
+from polyffusion_tpu_torch.ops.repaint_epilogue import (
+    fused_repaint_epilogue,
+    repaint_epilogue_reference,
+)
 
 # the limits of chip_smoke.py (set there from the card's readings)
 BWD_LIMITS = {torch.bfloat16: (2e-3, 2**-6), torch.float32: (1e-6, 0.0)}
 GN_LIMITS = {torch.bfloat16: (1e-4, 2**-6), torch.float32: (1e-6, 1e-6)}
 GN_PARAM_LIMIT = (1e-3, 1e-5)
+EPI_LIMIT = (1e-5, 1e-5)
 
 
 def _card():
@@ -144,3 +152,39 @@ def test_cuda_gn_bwd_matches_plain(b, c, hh, ww, dtype):
     assert _within(got[0], want[0], *GN_LIMITS[dtype])
     for x_, y in zip(got[1:], want[1:]):
         assert _within(x_, y, *GN_PARAM_LIMIT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [999, 500, 0])
+@pytest.mark.parametrize("shape", [(2, 2, 128, 128), (3, 2, 16, 16)])
+def test_cuda_repaint_epilogue_matches_plain(shape, step):
+    """Kernel 7 against its plain version with the preset's scalars at ``step``;
+    the limit must also catch a blend that ignores the mask."""
+    g = _card()
+    cfg = load_params("sdf_chd8bar")
+    scalars = _epilogue_scalars(make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end), step)
+    x, eps, p_noise, q_noise = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+    orig = (torch.rand(shape, device="cuda", generator=g) < 0.05).float()
+    mask = (torch.rand(shape, device="cuda", generator=g) < 0.5).float()
+    before = fused_repaint_epilogue.launches
+    got = fused_repaint_epilogue(x, eps, p_noise, orig, q_noise, mask, scalars)
+    torch.cuda.synchronize()
+    assert fused_repaint_epilogue.launches == before + 1
+    want = repaint_epilogue_reference(x, eps, p_noise, orig, q_noise, mask, scalars)
+    assert got.dtype == torch.float32 and got.shape == shape
+    assert _within(got, want, *EPI_LIMIT)
+    fault = repaint_epilogue_reference(x, eps, p_noise, orig, q_noise, torch.zeros_like(mask), scalars)
+    assert not _within(fault, want, *EPI_LIMIT)
+
+
+@pytest.mark.cuda
+def test_cuda_repaint_epilogue_refuses_strided_tensors():
+    """On the card the wrapper raises on a layout the kernel does not take; it
+    neither copies nor falls back to the plain version."""
+    _card()
+    tensors = [torch.zeros(2, 2, 16, 16, device="cuda") for _ in range(6)]
+    tensors[1] = torch.zeros(2, 16, 16, 2, device="cuda").permute(0, 3, 1, 2)
+    before = fused_repaint_epilogue.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_repaint_epilogue(*tensors, [1.0] * 7)
+    assert fused_repaint_epilogue.launches == before

@@ -58,7 +58,7 @@ def pair():
     noise = rng.standard_normal((B, 32, 32, 2)).astype(np.float32)
     return (
         JaxSession(jtask, params, use_ddim=True, ddim_steps=DDIM_STEPS, seed=0),
-        InferenceSession(task, ddim_steps=DDIM_STEPS, device="cpu"),
+        InferenceSession(task, sampler="ddim", ddim_steps=DDIM_STEPS, device="cpu"),
         jcond,
         cond,
         noise,
