@@ -6,15 +6,18 @@
 From the root of a checkout, with one CUDA card. It builds the port's CUDA
 kernels from the sources in the checkout (one ``nvcc`` per source, in
 parallel), holds every kernel against its plain PyTorch version on the card
-(with a planted fault that must fail each limit), holds the full-width fp32
-UNet eval, one full-width fp32 train step and a full-width fp32 DDPM RePaint
-run on the card against the CPU, then drives the main paths through the
-user's entry points, each with the kernels' launch counts set to 0 just before
-it and read just after:
+(with a planted fault that must fail each limit; kernel 4's gradient through
+its autograd function too), holds the full-width fp32 UNet eval (with the
+GroupNorm-SiLU-conv sites unfused and fused), one full-width fp32 train step
+and a full-width fp32 DDPM RePaint run on the card against the CPU, and the
+full-width bf16 UNet's int8 eps against its fused eps, then drives the main paths through the user's entry points, each with the
+kernels' launch counts set to 0 just before it and read just after:
 
 - sampling: the full-width ``sdf_chd8bar`` preset in bf16 with seeded random
   weights, chord one-hots -> chord encoder -> ``InferenceSession.generate`` at
-  DDIM-50, CFG 5, for requests of batch 1, 16, 64 and 64;
+  DDIM-50, CFG 5, for requests of batch 1, 16, 64 and 64; then two requests
+  at batch 64 with ``gn_conv="fused"`` (kernel 4 at all 44 sites of every UNet
+  eval) and two with ``gn_conv="int8"`` (kernel 5);
 - training: ``polyffusion_tpu_torch.main`` on synthetic songs with a seeded
   random ``chd8bar.pt``, the same preset in bf16 at its batch 16, 30 steps with
   one validation and one checkpoint, then ``--resume`` for 6 more;
@@ -22,7 +25,8 @@ it and read just after:
   directory the training wrote: (A) the default DDPM-1000 RePaint inpainting
   of a song's lower voices (``--inpaint_type below``, 2 segments, CFG 5), then
   (B) piece-batched long-form generation at DDIM-50 (``--autoreg --ddim``,
-  3 segments, 2 pieces, CFG 5); and a profiled window of request A's steps.
+  3 segments, 2 pieces, CFG 5), then (C) ``--gn_conv int8 --ddim`` over 2
+  segments; and a profiled window of request A's steps.
 
 Every phase raises on failure and the script then exits non-zero without a
 result. It imports nothing of JAX or of the JAX package.
@@ -46,7 +50,7 @@ import numpy as np
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and ops/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # Kernel against plain version: |got - want| <= atol + rtol |want|, elementwise.
 # bf16: both round the output to bf16, so they may differ by an output ulp,
@@ -105,6 +109,38 @@ ATTENTION_SITES, GROUPNORM_SITES = 11, 56
 CLI_SONG, CLI_A_SEGMENTS, CLI_B_SEGMENTS, CLI_B_PIECES = "song000.npz", 2, 3, 2
 CLI_DDPM_STEPS, CLI_DDIM_STEPS = 1000, 50
 PROFILE_STEPS = 50
+# Kernel 4 (fused GroupNorm-SiLU-conv3x3) against its plain version, elementwise.
+# bf16: both round the SiLU output and w to bf16 (products exact in fp32) and
+# differ in the order of the fp32 sums, then round the output once: an output
+# ulp (2^-8 |want|), rtol allows two; atol covers outputs near zero. fp32:
+# the order of the sums only.
+GNC_BF16_ATOL, GNC_BF16_RTOL = 1e-3, 2**-6
+GNC_FP32_ATOL, GNC_FP32_RTOL = 1e-5, 1e-5
+# kernel 4's gradient (a backward through the plain version) against the plain
+# version's autograd, per input in norm: the train step's gradient tolerance
+GNC_GRAD_RTOL = 1e-4
+# Kernel 5 (int8) against its plain version: the same quantized operands, an
+# exact int32 sum against an fp32 sum of integers (exact here), and a rescale
+# in another order: fp32 the JAX package's emulation tolerance
+# (tests/test_int8_gn_conv.py:50), bf16 as kernel 4.
+GNQ_FP32_ATOL, GNQ_FP32_RTOL = 1e-3, 1e-5
+# int8 eps against fused eps of the full-width bf16 UNet: the bound of the JAX
+# package's tests/test_int8_gn_conv.py:190
+INT8_EPS_REL = 0.05
+GN_CONV_SITES, GN_CONV_TWO_INPUT = 44, 12  # per UNet eval: 22 ResBlocks x 2; decoder in_layers
+GN_CONV_BATCH = 64
+# the batch-128 sites of one UNet eval (C1, C2, O, H = W, residual, sites):
+# 32 one-input (in_layers without a residual, out_layers with the block's),
+# 12 two-input (the decoder's in_layers)
+GN_CONV_PATH = [
+    (64, 0, 64, 128, False, 2), (64, 0, 64, 128, True, 5), (64, 0, 128, 64, False, 1),
+    (128, 0, 128, 64, False, 1), (128, 0, 128, 64, True, 5), (128, 0, 256, 32, False, 1),
+    (256, 0, 256, 32, False, 1), (256, 0, 256, 32, True, 5), (256, 0, 256, 16, False, 4),
+    (256, 0, 256, 16, True, 7),
+    (256, 256, 256, 16, False, 3), (256, 256, 256, 32, False, 2), (256, 128, 256, 32, False, 1),
+    (256, 128, 128, 64, False, 1), (128, 128, 128, 64, False, 1), (128, 64, 128, 64, False, 1),
+    (128, 64, 64, 128, False, 1), (64, 64, 64, 128, False, 2),
+]
 
 
 def log(msg: str) -> None:
@@ -437,6 +473,265 @@ def check_repaint_epilogue():
     return rows
 
 
+def gn_conv_inputs(g, b, c1, c2, o, hw, dtype, residual):
+    """Random inputs of one fused GroupNorm-SiLU-conv site on the card: x (and
+    x2), their fp32 affine, w (O, C1 + C2, 3, 3) as a UNet's, the bias, the
+    residual; and a GroupNorm's scale and shift for the unfused composition."""
+    import torch
+
+    f = lambda *s: torch.randn(*s, device="cuda", generator=g)  # noqa: E731
+    c = c1 + c2
+    d = dict(x=f(b, c1, hw, hw).to(dtype), a=f(b, c1) * 0.5 + 1, off=f(b, c1) * 0.3, x2=None,
+             a2=None, off2=None, w=(f(o, c, 3, 3) * (9 * c) ** -0.5).to(dtype),
+             b=(f(o) * 0.1).to(dtype), res=f(b, o, hw, hw).to(dtype) if residual else None,
+             gamma=f(c) * 0.2 + 1, beta=f(c) * 0.1)
+    if c2:  # the second input a little wider, so that it holds the larger |SiLU| of most
+        # items and the planted fault "scale of the first input alone" shows
+        d.update(x2=f(b, c2, hw, hw).to(dtype), a2=f(b, c2) * 0.5 + 1.5, off2=f(b, c2) * 0.3)
+    return d
+
+
+def pad_with_silu_off(t, off):
+    """(B, C, H, W) SiLU output padded by SiLU(off) on every side, where the
+    kernels pad with 0: the halo of the planted fault of ``check_gn_conv``."""
+    import torch.nn.functional as F
+
+    b, c, h, w = t.shape
+    y = F.silu(off)[:, :, None, None].expand(b, c, h + 2, w + 2).clone()
+    y[:, :, 1:-1, 1:-1] = t
+    return y
+
+
+def silu_halo_fault(d, dtype):
+    """Kernel 4's plain version with the SiLU'd input padded by SiLU(off), not
+    0: the planted fault of ``check_gn_conv``."""
+    import torch
+    import torch.nn.functional as F
+
+    ys = []
+    for x, a, off in ((d["x"], d["a"], d["off"]), (d["x2"], d["a2"], d["off2"])):
+        if x is None:
+            continue
+        t = F.silu(x.float() * a[:, :, None, None] + off[:, :, None, None])
+        ys.append(pad_with_silu_off(t, off).to(dtype).float())
+    out = F.conv2d(torch.cat(ys, 1), d["w"].float()) + d["b"].float()[:, None, None]
+    if d["res"] is not None:
+        out = out + d["res"].float()
+    return out.to(dtype)
+
+
+def gn_conv_bound(d, quantized):
+    """(ms, bound_by): the larger of the bytes (x, x2, a, off, w, b, residual
+    read once, out written once) over the memory rate and the operations over
+    the peak for the operands' type."""
+    x, w = d["x"], d["w"]
+    b, c1, h, wd = x.shape
+    c = c1 + (d["x2"].shape[1] if d["x2"] is not None else 0)
+    o = w.shape[0]
+    item = x.element_size()
+    nbytes = (b * c * h * wd + b * o * h * wd * (2 if d["res"] is not None else 1)) * item
+    nbytes += b * c * 2 * 4 + o * c * 9 * (1 if quantized else item) + o * 4
+    ops = 2 * b * h * wd * 9 * c * o
+    peak = PEAK_OPS_PER_S["int8" if quantized else str(x.dtype).split(".")[1]]
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gn_conv_cases():
+    """(B, C1, C2, O, H = W, dtype, residual): every distinct batch-128 bf16
+    site of one UNet eval at a batch-64 request (GN_CONV_PATH), then fp32 at
+    batch 8, one and two inputs, with and without a residual."""
+    import torch
+
+    cases = [(128, c1, c2, o, hw, torch.bfloat16, res) for c1, c2, o, hw, res, _ in GN_CONV_PATH]
+    cases += [(8, 64, 0, 64, 128, torch.float32, True), (8, 64, 0, 64, 128, torch.float32, False),
+              (8, 128, 64, 64, 128, torch.float32, False),
+              (8, 256, 256, 256, 16, torch.float32, True)]
+    return cases
+
+
+def unfused_composition(d):
+    """What the unfused route runs for one site: the concat (two inputs), the
+    UNet's GroupNorm32 (fp32 statistics, affine applied in the activations'
+    dtype), SiLU, cuDNN's conv, the residual add."""
+    import torch
+    import torch.nn.functional as F
+
+    from polyffusion_tpu_torch.ops.gn_bwd import gn_primal
+
+    x = d["x"] if d["x2"] is None else torch.cat([d["x"], d["x2"]], 1)
+    y = F.conv2d(F.silu(gn_primal(x, d["gamma"], d["beta"], 32, 1e-5)[0]), d["w"], d["b"],
+                 padding=1)
+    return y if d["res"] is None else y + d["res"]
+
+
+def check_gn_conv_gradient():
+    """Autograd through kernel 4's function at one two-input site shape in
+    fp32 (the kernel forward; a backward that recomputes through the plain
+    version, as JAX's custom VJP does) against autograd of the plain version:
+    each input's gradient within GNC_GRAD_RTOL of it in norm (cuDNN sums the
+    backward's convolutions in its own order), and every input reached."""
+    import torch
+
+    from polyffusion_tpu_torch.ops import fused_gn_conv as K
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    d = gn_conv_inputs(g, 8, 128, 64, 64, 64, torch.float32, True)
+    names = ["x", "a", "off", "x2", "a2", "off2", "w", "b", "res"]
+    co = torch.randn(8, 64, 64, 64, device="cuda", generator=g)
+    grads = {}
+    for how in ("kernel", "plain"):
+        leaves = {n: d[n].detach().clone().requires_grad_() for n in names}
+        args = [leaves[n] for n in ("x", "a", "off", "x2", "a2", "off2", "w", "b", "res")]
+        if how == "kernel":
+            before = K.gn_silu_conv3x3.launches
+            out = K.gn_silu_conv3x3_concat(*args)
+            if K.gn_silu_conv3x3.launches != before + 1 or "GNSiLUConv" not in type(out.grad_fn).__name__:
+                raise AssertionError("the fused function's forward is not the kernel")
+        else:
+            x, a, off, x2, a2, off2, w, b, res = args
+            out = K.gn_silu_conv3x3_reference(x, a, off, w, b, res, x2, a2, off2)
+        grads[how] = torch.autograd.grad(out, args, co)
+    worst, name = -1.0, ""
+    for n, got, want in zip(names, grads["kernel"], grads["plain"]):
+        r = ((got - want).norm() / (GNC_GRAD_RTOL * want.norm())).item()
+        if not (want.norm() > 0 and r == r):
+            raise AssertionError(f"no gradient reached {n}")
+        if r > worst:
+            worst, name = r, n
+    log(f"[kernel] gn_silu_conv gradient through its function at B=8 C=128+64->64 H=W=64 "
+        f"float32 + residual, against the plain version's autograd: {worst:.3g} x the limit "
+        f"(rel {GNC_GRAD_RTOL} in norm per input; worst {name})")
+    if not worst <= 1.0:
+        raise AssertionError("kernel 4's gradient disagrees with the plain version's")
+
+
+def check_gn_conv(quantized: bool):
+    """Kernel 4 (or, ``quantized``, kernel 5: its amax pass and int8
+    convolution) against its plain version at every batch-128 bf16 site shape
+    of the UNet and at fp32 shapes. At each the limit is also shown to catch a
+    planted fault: a halo of SiLU(off) in place of 0, and for kernel 5's
+    two-input sites the activation scale of the first input alone. Timed in
+    turns with the plain version, cuDNN's conv alone on the already-SiLU'd
+    input (the library call) and the unfused composition."""
+    import torch
+    import torch.nn.functional as F
+
+    from polyffusion_tpu_torch.ops import fused_gn_conv as K
+
+    g = torch.Generator(device="cuda").manual_seed(8 + quantized)
+    rows = []
+    for b, c1, c2, o, hw, dtype, res in gn_conv_cases():
+        d = gn_conv_inputs(g, b, c1, c2, o, hw, dtype, res)
+        parts = (d["x"], d["a"], d["off"], d["x2"], d["a2"], d["off2"])
+        if quantized:
+            w_q, w_scale = K.quantize_conv_kernel(d["w"])
+
+            def kernel():
+                if d["x2"] is None:
+                    return K.gn_silu_conv3x3_q(d["x"], d["a"], d["off"], w_q, w_scale, d["b"],
+                                               d["res"])
+                return K.gn_silu_conv3x3_concat_q(*parts, w_q, w_scale, d["b"], d["res"])
+
+            def plain():
+                return K.gn_silu_conv3x3_q_reference(d["x"], d["a"], d["off"], w_q, w_scale,
+                                                     d["b"], d["res"], *parts[3:])
+
+            atol, rtol = ((GNQ_FP32_ATOL, GNQ_FP32_RTOL) if dtype == torch.float32
+                          else (GNC_BF16_ATOL, GNC_BF16_RTOL))
+        else:
+            def kernel():
+                if d["x2"] is None:
+                    return K.gn_silu_conv3x3(d["x"], d["a"], d["off"], d["w"], d["b"], d["res"])
+                return K.gn_silu_conv3x3_concat(*parts, d["w"], d["b"], d["res"])
+
+            def plain():
+                return K.gn_silu_conv3x3_reference(d["x"], d["a"], d["off"], d["w"], d["b"],
+                                                   d["res"], *parts[3:])
+
+            atol, rtol = ((GNC_FP32_ATOL, GNC_FP32_RTOL) if dtype == torch.float32
+                          else (GNC_BF16_ATOL, GNC_BF16_RTOL))
+        with torch.no_grad():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err = (got.float() - want.float()).abs().max().item()
+            ratio = limit_ratio(got, want, atol, rtol)
+            fault = plain_q_fault(d, w_q, w_scale, halo=True) if quantized else silu_halo_fault(
+                d, dtype)
+            faults = {"silu_halo": limit_ratio(fault, want, atol, rtol)}
+            if quantized and d["x2"] is not None:
+                faults["first_input_amax"] = limit_ratio(plain_q_fault(d, w_q, w_scale), want,
+                                                         atol, rtol)
+            del fault
+        name = "gn_silu_conv_q" if quantized else "gn_silu_conv"
+        shape = (f"B={b} C={c1}{f'+{c2}' if c2 else ''}->{o} H=W={hw} "
+                 f"{str(dtype).split('.')[1]}{' residual' if res else ''}")
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name} {shape}: max_abs_err {err}, {ratio:.3g} x the limit "
+                                 f"(atol {atol}, rtol {rtol})")
+        for fault, fr in faults.items():
+            if not fr > 1.0:
+                raise AssertionError(f"the limit at {shape} does not catch the fault {fault} "
+                                     f"({fr:.3g} x the limit)")
+        y = F.silu(d["x"].float() * d["a"][:, :, None, None] + d["off"][:, :, None, None]).to(dtype)
+        if d["x2"] is not None:
+            y = torch.cat([y, F.silu(d["x2"].float() * d["a2"][:, :, None, None]
+                                     + d["off2"][:, :, None, None]).to(dtype)], 1)
+        fns = {"kernel": kernel, "plain": plain,
+               "library": lambda: F.conv2d(y, d["w"], d["b"], padding=1),
+               "unfused": lambda: unfused_composition(d)}
+        if quantized:
+            fns["amax_pass"] = lambda: K.gn_silu_amax(*parts)
+        with torch.no_grad():
+            ms = time_in_turns(fns)
+        bound, bound_by = gn_conv_bound(d, quantized)
+        row = dict(shape=shape, max_abs_err=err, atol=atol, rtol=rtol, limit_ratio=ratio,
+                   fault_limit_ratio=min(faults.values()), faults=faults,
+                   want_abs_max=want.float().abs().max().item(), ms=ms["kernel"],
+                   plain_ms=ms["plain"], library_ms=ms["library"], unfused_ms=ms["unfused"],
+                   bound_ms=bound, bound_by=bound_by)
+        if quantized:
+            row["amax_pass_ms"] = ms["amax_pass"]
+        log(f"[kernel] {name} {shape}: max_abs_err {err:.3g} (|want| max "
+            f"{row['want_abs_max']:.3g}), {ratio:.3g} x the limit (atol {atol}, rtol {rtol:.3g}; "
+            + ", ".join(f"{k}: {v:.3g} x" for k, v in faults.items()) + ")  "
+            f"kernel {ms['kernel']:.4f} ms"
+            + (f" (amax pass {ms['amax_pass']:.4f})" if quantized else "")
+            + f"  plain {ms['plain']:.4f} ms  cuDNN conv {ms['library']:.4f} ms  unfused "
+            f"{ms['unfused']:.4f} ms  bound {bound:.4f} ms ({bound_by})")
+        rows.append(row)
+        del d, got, want, y, fns
+    return rows
+
+
+def plain_q_fault(d, w_q, w_scale, halo=False):
+    """Kernel 5's plain version with one of two planted faults: ``halo``, the
+    padding SiLU(off) in place of 0; else the activation scale taken from the
+    first input alone."""
+    import torch
+    import torch.nn.functional as F
+
+    ins = [(d["x"], d["a"], d["off"])] + ([(d["x2"], d["a2"], d["off2"])] if d["x2"] is not None
+                                          else [])
+    ts = [F.silu(x.float() * a[:, :, None, None] + off[:, :, None, None]) for x, a, off in ins]
+    amaxes = [t.abs().amax(dim=(1, 2, 3)) for t in ts]
+    amax = torch.clamp(torch.stack(amaxes).amax(0) if halo else amaxes[0], min=1e-6)
+    inv = (torch.full_like(amax, 127.0) / amax)[:, None, None, None]
+    dtype = d["x"].dtype
+    qs = []
+    for t, (x, a, off) in zip(ts, ins):
+        if halo:
+            t = pad_with_silu_off(t, off)
+        qs.append(torch.clamp(torch.round(t.to(dtype).float() * inv), -127, 127))
+    acc = F.conv2d(torch.cat(qs, 1), w_q.float(), padding=0 if halo else 1)
+    out = acc * (amax[:, None, None, None] / 127.0) * w_scale[None, :, None, None]
+    out = out + d["b"].float()[:, None, None]
+    if d["res"] is not None:
+        out = out + d["res"].float()
+    return out.to(dtype)
+
+
 def full_cfg(bf16: bool):
     from polyffusion_tpu_torch.config import load_params
 
@@ -454,23 +749,24 @@ def random_chord_encoder(cfg, seed):
     return init_weights_(enc, torch.Generator().manual_seed(seed + 1000))
 
 
-def make_task(cfg, device, seed, training=False):
+def make_task(cfg, device, seed, training=False, gn_conv="unfused"):
     import torch
 
     from polyffusion_tpu_torch.tasks import SDFTask
 
     return SDFTask(cfg, random_chord_encoder(cfg, seed), device=device,
-                   generator=torch.Generator().manual_seed(seed), training=training)
+                   generator=torch.Generator().manual_seed(seed), training=training,
+                   gn_conv=gn_conv)
 
 
-def check_unet_against_cpu():
+def check_unet_against_cpu(gn_conv="unfused"):
     """One full-width fp32 UNet eval at batch 2 doubled by CFG: the card (with
-    the kernel) against the CPU (with the plain version)."""
+    the kernels) against the CPU (with their plain versions)."""
     import torch
 
     cfg = full_cfg(bf16=False)
-    gpu = make_task(cfg, "cuda", seed=1)
-    cpu = make_task(cfg, "cpu", seed=1)
+    gpu = make_task(cfg, "cuda", seed=1, gn_conv=gn_conv)
+    cpu = make_task(cfg, "cpu", seed=1, gn_conv=gn_conv)
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, 2, 128, 128)).astype(np.float32))
     t = torch.tensor([981, 401], dtype=torch.int32)
@@ -486,11 +782,40 @@ def check_unet_against_cpu():
         t_cpu = time.perf_counter() - t0
     err = (got - want).abs()
     ok = bool((err <= UNET_ATOL + UNET_RTOL * want.abs()).all())
-    log(f"[unet] full-width fp32 (B=4) card vs CPU: max_abs_err {err.max().item():.3g} "
+    log(f"[unet] full-width fp32 (B=4, gn_conv {gn_conv}) card vs CPU: max_abs_err "
+        f"{err.max().item():.3g} "
         f"(atol {UNET_ATOL}, rtol {UNET_RTOL}), |out| max {want.abs().max().item():.3g}, "
         f"card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
     if not ok or not torch.isfinite(got).all():
-        raise AssertionError("full-width UNet on the card disagrees with the CPU")
+        raise AssertionError(f"full-width UNet (gn_conv {gn_conv}) on the card disagrees with "
+                             "the CPU")
+
+
+def check_int8_against_fused():
+    """The full-width bf16 UNet's eps with int8 sites (kernel 5) against its
+    eps with fused bf16 sites (kernel 4), same weights, at batch 4 on the card:
+    mean |int8 - fused| / mean |fused| under INT8_EPS_REL."""
+    import torch
+
+    cfg = full_cfg(bf16=True)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((4, 2, 128, 128)).astype(np.float32)).cuda()
+    t = torch.tensor([981, 600, 250, 12], device="cuda")
+    cond = torch.from_numpy(rng.standard_normal((4, 1, cfg.d_cond)).astype(np.float32)).cuda()
+    eps = {}
+    for mode in ("fused", "int8"):
+        task = make_task(cfg, "cuda", seed=2, gn_conv=mode)
+        with torch.inference_mode():
+            eps[mode] = task.apply_eps(x, t, cond).float()
+        del task
+    err = (eps["int8"] - eps["fused"]).abs()
+    rel = (err.mean() / eps["fused"].abs().mean()).item()
+    log(f"[unet] full-width bf16 (B=4) int8 eps vs fused eps on the card: mean rel err {rel:.4g} "
+        f"(limit {INT8_EPS_REL}), max_abs_err {err.max().item():.3g}, |fused| mean "
+        f"{eps['fused'].abs().mean().item():.3g}")
+    if not (rel < INT8_EPS_REL and torch.isfinite(eps["int8"]).all()):
+        raise AssertionError("the int8 UNet's eps is too far from the fused one")
+    return rel
 
 
 
@@ -656,17 +981,16 @@ def drive_training_path(counters, work):
             "--pretrained_dir", pretrained, "--log_every", str(LOG_EVERY), "--seed", "0"]
     totals = {name: 0 for name in counters}
     for steps, extra in ((TRAIN_STEPS, []), (RESUME_STEPS, ["--resume"])):
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state = train_main(args + ["--max_steps", str(TRAIN_STEPS + (steps if extra else 0))] + extra)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = {name: fn.launches for name, fn in counters.items()}
-        want = {"packed_attention": ATTENTION_SITES * (steps + val_batches),
-                "packed_attention_bwd": ATTENTION_SITES * steps,
-                "gn_bwd": GROUPNORM_SITES * steps, "repaint_epilogue": 0}
+        want = dict({name: 0 for name in counters},
+                    packed_attention=ATTENTION_SITES * (steps + val_batches),
+                    packed_attention_bwd=ATTENTION_SITES * steps, gn_bwd=GROUPNORM_SITES * steps)
         log(f"[train] {'resumed ' if extra else ''}run: {steps} steps and {val_batches} val "
             f"batches in {secs:.3f} s (with setup), launches {got}")
         if got != want:
@@ -744,6 +1068,61 @@ def drive_main_path(packed_self_attention):
     return total
 
 
+def zero_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "two_input_launches"):
+            fn.two_input_launches = 0
+
+
+def drive_gn_conv_requests(counters):
+    """DDIM-50 CFG-5 requests at batch GN_CONV_BATCH of the full-width bf16
+    preset with the UNet's GroupNorm-SiLU-conv sites fused (kernel 4) and then
+    int8 (kernel 5), two requests each, each with the launch counts set to 0
+    just before it and read just after. Returns each mode's launches by kernel
+    (both requests) and the second request's seconds."""
+    import torch
+
+    from polyffusion_tpu_torch.inference import InferenceSession
+    from polyffusion_tpu_torch.ops.fused_gn_conv import gn_silu_conv3x3, gn_silu_conv3x3_q
+
+    cfg = full_cfg(bf16=True)
+    rng = np.random.default_rng(10)
+    per_request = GN_CONV_SITES * 50
+    zero = {name: 0 for name in counters}
+    want = {
+        "fused": dict(zero, packed_attention=LAUNCHES_PER_REQUEST, gn_silu_conv=per_request),
+        "int8": dict(zero, packed_attention=LAUNCHES_PER_REQUEST, gn_silu_conv_q=per_request,
+                     gn_silu_amax=per_request),
+    }
+    totals, secs = {}, {}
+    for mode, two_input in (("fused", gn_silu_conv3x3), ("int8", gn_silu_conv3x3_q)):
+        task = make_task(cfg, None, seed=0, gn_conv=mode)
+        session = InferenceSession(task, sampler="ddim", ddim_steps=50, seed=0)
+        totals[mode] = dict(zero)
+        for i in range(2):
+            chords = torch.from_numpy(random_chords(rng, GN_CONV_BATCH))
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = session.generate(task.encode_chord(chords), uncond_scale=5.0)
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t0
+            got = {name: fn.launches for name, fn in counters.items()}
+            n_two = two_input.two_input_launches
+            log(f"[main] gn_conv {mode} request {i}: batch {GN_CONV_BATCH}: {secs[mode]:.3f} s, "
+                f"{GN_CONV_BATCH / secs[mode]:.3f} samples/s, launches {got}, two-input {n_two}")
+            if got != want[mode] or n_two != GN_CONV_TWO_INPUT * 50:
+                raise AssertionError(f"expected launches {want[mode]} with "
+                                     f"{GN_CONV_TWO_INPUT * 50} two-input, got {got}, {n_two}")
+            if gen.shape != (GN_CONV_BATCH, 2, 128, 128) or not np.isfinite(gen).all():
+                raise AssertionError(f"bad output: shape {gen.shape}")
+            for name in totals[mode]:
+                totals[mode][name] += got[name]
+        del task, session
+    return totals, secs
+
+
 def midi_instruments(path: str) -> int:
     """The instrument tracks of a .mid written by the port's ``save_midi``: a
     format-1 file of one meta track and one track per instrument."""
@@ -775,6 +1154,7 @@ def drive_inference_cli(counters, work):
         "inpainting": ["--inpaint_type", "below", "--length", str(CLI_A_SEGMENTS)],
         "autoreg": ["--autoreg", "--ddim", "--length", str(CLI_B_SEGMENTS),
                     "--num_generate", str(CLI_B_PIECES)],
+        "int8": ["--gn_conv", "int8", "--ddim", "--length", str(CLI_A_SEGMENTS)],
     }
     windows = 2 * CLI_B_SEGMENTS - 1
     zero = {name: 0 for name in counters}
@@ -782,13 +1162,15 @@ def drive_inference_cli(counters, work):
         "inpainting": dict(zero, packed_attention=ATTENTION_SITES * CLI_DDPM_STEPS,
                            repaint_epilogue=CLI_DDPM_STEPS),
         "autoreg": dict(zero, packed_attention=ATTENTION_SITES * CLI_DDIM_STEPS * windows),
+        "int8": dict(zero, packed_attention=ATTENTION_SITES * CLI_DDIM_STEPS,
+                     gn_silu_conv_q=GN_CONV_SITES * CLI_DDIM_STEPS,
+                     gn_silu_amax=GN_CONV_SITES * CLI_DDIM_STEPS),
     }
-    want_mids = {"inpainting": 1, "autoreg": CLI_B_PIECES}
+    want_mids = {"inpainting": 1, "autoreg": CLI_B_PIECES, "int8": 1}
     launches, secs, outputs = {}, {}, {}
     for path, extra in requests.items():
         out_dir = os.path.join(work, path)
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outputs[path] = infer_main(base + extra + ["--output_dir", out_dir])
@@ -823,6 +1205,9 @@ def drive_inference_cli(counters, work):
     if (long_form.shape != (CLI_B_PIECES, 2 * CLI_B_SEGMENTS, 2, 64, 128)
             or not np.isfinite(long_form).all()):
         raise AssertionError(f"bad long-form output: shape {long_form.shape}")
+    (int8_gen,) = outputs["int8"]
+    if int8_gen.shape != (CLI_A_SEGMENTS, 2, 128, 128) or not np.isfinite(int8_gen).all():
+        raise AssertionError(f"bad int8 output: shape {int8_gen.shape}")
     return launches, secs["inpainting"], mask
 
 
@@ -881,6 +1266,11 @@ def main() -> int:
     from polyffusion_tpu_torch.device import tf32
     from polyffusion_tpu_torch.ops import _build
     from polyffusion_tpu_torch.ops.fused_attention import packed_attention_bwd, packed_self_attention
+    from polyffusion_tpu_torch.ops.fused_gn_conv import (
+        gn_silu_amax,
+        gn_silu_conv3x3,
+        gn_silu_conv3x3_q,
+    )
     from polyffusion_tpu_torch.ops.gn_bwd import group_norm_bwd
     from polyffusion_tpu_torch.ops.repaint_epilogue import fused_repaint_epilogue
 
@@ -905,7 +1295,12 @@ def main() -> int:
     bwd_rows = check_attention_bwd()
     gn_rows = check_gn_bwd()
     epi_rows = check_repaint_epilogue()
+    gnc_rows = check_gn_conv(quantized=False)
+    gnq_rows = check_gn_conv(quantized=True)
+    check_gn_conv_gradient()
     check_unet_against_cpu()
+    check_unet_against_cpu(gn_conv="fused")
+    check_int8_against_fused()
     check_train_step_against_cpu()
     check_ddpm_paint_against_cpu()
     sites = count_sites(make_task(full_cfg(bf16=True), "cpu", seed=0).unet)
@@ -920,10 +1315,12 @@ def main() -> int:
         raise AssertionError("the main path never launched packed_attention")
     counters = {"packed_attention": packed_self_attention,
                 "packed_attention_bwd": packed_attention_bwd, "gn_bwd": group_norm_bwd,
-                "repaint_epilogue": fused_repaint_epilogue}
+                "repaint_epilogue": fused_repaint_epilogue, "gn_silu_conv": gn_silu_conv3x3,
+                "gn_silu_conv_q": gn_silu_conv3x3_q, "gn_silu_amax": gn_silu_amax}
+    gn_conv_paths, _ = drive_gn_conv_requests(counters)
     with tempfile.TemporaryDirectory() as work:
         training = drive_training_path(counters, work)
-        if min(v for k, v in training.items() if k != "repaint_epilogue") == 0:
+        if min(training[k] for k in ("packed_attention", "packed_attention_bwd", "gn_bwd")) == 0:
             raise AssertionError(f"the training path did not launch every kernel: {training}")
         cli, request_secs, mask = drive_inference_cli(counters, work)
         profile_inpainting(work, mask, request_secs)
@@ -970,7 +1367,22 @@ def main() -> int:
               "polyffusion_tpu/ops/pallas_sampler.py:33",
               {"inpainting": cli["inpainting"]["repaint_epilogue"]}, epi_rows, epi_rows[0],
               epi_rows),
+        # B=128 C=64->64 128x128 bf16 with the residual: the costliest site shape
+        entry("gn_silu_conv", "polyffusion_tpu_torch/ops/csrc/gn_silu_conv.cu",
+              "polyffusion_tpu/ops/fused_gn_conv.py:36",
+              {"sampling_fused": gn_conv_paths["fused"]["gn_silu_conv"]}, gnc_rows, gnc_rows[1],
+              [r for r in gnc_rows if "bfloat16" in r["shape"]]),
+        entry("gn_silu_conv_q", "polyffusion_tpu_torch/ops/csrc/gn_silu_conv.cu",
+              "polyffusion_tpu/ops/fused_gn_conv.py:36",
+              {"sampling_int8": gn_conv_paths["int8"]["gn_silu_conv_q"],
+               "cli_int8": cli["int8"]["gn_silu_conv_q"]}, gnq_rows, gnq_rows[1],
+              [r for r in gnq_rows if "bfloat16" in r["shape"]]),
     ]
+    # kernel 5's amax pass runs once before each of its convolutions
+    kernels[-1]["amax_pass_launches_by_path"] = {
+        "sampling_int8": gn_conv_paths["int8"]["gn_silu_amax"],
+        "cli_int8": cli["int8"]["gn_silu_amax"]}
+    kernels[-1]["amax_pass_ms"] = gnq_rows[1]["amax_pass_ms"]
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

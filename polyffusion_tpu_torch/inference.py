@@ -3,7 +3,7 @@
 
     python -m polyffusion_tpu_torch.inference --chkpt_path <run dir or .pt> \\
         --data_dir <npz dir> --song_fn <song.npz> [--inpaint_type below] \\
-        [--autoreg] [--ddim | --dpmpp] [--uncond_scale 5] --output_dir gen/
+        [--autoreg] [--ddim | --dpmpp] [--uncond_scale 5] [--gn_conv int8] --output_dir gen/
 
 The sampler is DDPM (all of the schedule's steps, RePaint inpainting) unless
 ``--ddim`` or ``--dpmpp`` asks for a tau-grid one. ``predict`` keeps the JAX
@@ -32,6 +32,7 @@ from .diffusion import sampler as S
 from .diffusion.gaussian import q_sample_step
 from .diffusion.schedule import make_ddim_schedule
 from .models.encoders import build_frozen_encoders
+from .models.unet import GN_CONV_MODES
 from .tasks.sdf import SDFTask
 from .utils.midi_io import prmat2c_to_midi_file
 
@@ -370,15 +371,16 @@ def song_conditions(task: SDFTask, song_data, length: int = 0, autoreg: bool = F
 
 
 def build_task_for_inference(cfg: Params, pretrained_dir: Optional[str] = None,
-                             device: DeviceLike = None) -> SDFTask:
+                             device: DeviceLike = None, gn_conv: str = "unfused") -> SDFTask:
     """The task of ``cfg`` with its frozen encoders from ``pretrained_dir``;
-    its UNet weights come from ``load_unet_params``."""
+    its UNet weights come from ``load_unet_params``. ``gn_conv``: the UNet's
+    GroupNorm-SiLU-conv route ("unfused", "fused" or "int8")."""
     if cfg.get("model_name") == "ddpm":
         raise NotImplementedError(
             "model_name ddpm (the plain DDPM family) is not ported yet (ROADMAP.md item 10)"
         )
     encoders = build_frozen_encoders(cfg, pretrained_dir)
-    return SDFTask(cfg, encoders.get("chord_enc"), device=device)
+    return SDFTask(cfg, encoders.get("chord_enc"), device=device, gn_conv=gn_conv)
 
 
 # -- CLI ------------------------------------------------------------------------------
@@ -422,6 +424,9 @@ def main(argv=None):
     p.add_argument("--use_ema", action="store_true",
                    help="sample from the EMA parameter branch (runs trained with ema_decay)")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument("--gn_conv", default="unfused", choices=list(GN_CONV_MODES),
+                   help="the UNet's GroupNorm-SiLU-conv3x3 sites: as three modules, through "
+                   "the fused kernel, or through its int8 form")
     args = p.parse_args(argv)
 
     run_params = os.path.join(args.chkpt_path, "params.yaml")
@@ -429,7 +434,8 @@ def main(argv=None):
         cfg = load_params(run_params)
     else:
         cfg = load_params(args.model or "sdf_chd8bar")
-    task = build_task_for_inference(cfg, args.pretrained_dir, device=args.device)
+    task = build_task_for_inference(cfg, args.pretrained_dir, device=args.device,
+                                    gn_conv=args.gn_conv)
     task.load_unet_state(load_unet_params(args.chkpt_path, use_ema=args.use_ema))
     session = InferenceSession(
         task,

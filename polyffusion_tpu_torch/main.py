@@ -26,14 +26,16 @@ from .tasks import SDFTask
 from .train import Trainer
 
 
-def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 0) -> SDFTask:
+def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 0,
+               gn_conv: str = "unfused") -> SDFTask:
     """The task of ``cfg`` for training: UNet weights fp32 from ``seed``, the
-    frozen encoders from ``pretrained_dir``."""
+    frozen encoders from ``pretrained_dir``; ``gn_conv`` "unfused" or
+    "fused" (the int8 route has no gradient)."""
     if not cfg["model_name"].startswith("sdf"):
         raise NotImplementedError(f"{cfg['model_name']}: the port trains sdf presets only")
     encoders = build_frozen_encoders(cfg, pretrained_dir)
     return SDFTask(cfg, encoders.get("chord_enc"), device=device,
-                   generator=torch.Generator().manual_seed(seed), training=True)
+                   generator=torch.Generator().manual_seed(seed), training=True, gn_conv=gn_conv)
 
 
 def main(argv=None):
@@ -54,6 +56,10 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true", help="resume from output_dir/chkpts")
     p.add_argument("--fresh", action="store_true", help="force a new timestamped subdir")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument("--gn_conv", default="unfused", choices=["unfused", "fused"],
+                   help="the UNet's GroupNorm-SiLU-conv3x3 sites: as three modules or through "
+                   "the fused kernel (whose backward recomputes through its plain version); "
+                   "the int8 route is for sampling only")
     p.add_argument(
         "--set",
         action="append",
@@ -88,7 +94,8 @@ def main(argv=None):
     else:
         train_ds, val_ds = SegmentDataset.train_val_from_dir(args.data_dir, 0.9, use_track)
 
-    task = build_task(cfg, args.pretrained_dir, device=args.device, seed=args.seed)
+    task = build_task(cfg, args.pretrained_dir, device=args.device, seed=args.seed,
+                      gn_conv=args.gn_conv)
     train_dl, val_dl = make_loaders(
         train_ds, val_ds, cfg["batch_size"], task.device, seed=args.seed,
         used_fields=task.used_batch_fields,

@@ -1,5 +1,5 @@
 """Stable-Diffusion-style conditional UNet (counterpart of ``polyffusion_tpu/models/unet.py``,
-default path: no space-to-depth, fused GN-conv, int8 or ``cfg_fork`` branches).
+without its space-to-depth, XLA-int8 and ``cfg_fork`` branches).
 
 NCHW inside. The module tree and parameter names are the reference torch
 UNet's (``time_embed.0``, ``input_blocks.1.0.in_layers.0``, ``emb_layers.1``,
@@ -9,6 +9,14 @@ so reference checkpoints load with a strict ``load_state_dict``.
 The compute dtype is the dtype of the weights (see ``utils/precision.py``):
 norm scales and biases stay fp32, the statistics of every norm and the
 attention softmax run in fp32, and the output is fp32.
+
+``gn_conv`` picks how each ResBlock runs its two GroupNorm -> SiLU -> conv3x3
+sites (the JAX package's ``POLYFF_FUSED_GN_CONV`` / ``POLYFF_INT8_CONV``):
+"unfused" as three modules, "fused" through the fused kernel
+(``ops/fused_gn_conv.py``, kernel 4) with the decoder's skip concat never built
+and the block's residual added inside the second kernel, "int8" the same with
+int8 operands (kernel 5, sampling only; ``UNetModel.prepare_gn_conv`` makes
+the int8 weights once). Parameter names and shapes are the same in every mode.
 """
 
 from __future__ import annotations
@@ -21,7 +29,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import multihead_attention
-from ..ops.gn_bwd import group_norm_affine
+from ..ops.fused_gn_conv import (
+    gn_silu_conv3x3,
+    gn_silu_conv3x3_concat,
+    gn_silu_conv3x3_concat_q,
+    gn_silu_conv3x3_q,
+    quantize_conv_kernel,
+)
+from ..ops.gn_bwd import gn_affine, group_norm_affine
+
+GN_CONV_MODES = ("unfused", "fused", "int8")
 
 
 def timestep_embedding(time_steps: torch.Tensor, channels: int, max_period: int = 10000) -> torch.Tensor:
@@ -62,21 +79,86 @@ def _conv3x3(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
 
 
 class ResBlock(nn.Module):
-    """GN -> SiLU -> conv, + time embedding, GN -> SiLU -> conv, + skip."""
+    """GN -> SiLU -> conv, + time embedding, GN -> SiLU -> conv, + skip.
 
-    def __init__(self, channels: int, d_t_emb: int, out_channels: Optional[int] = None):
+    ``skip``: the decoder's skip tensor; the block then acts on the channel
+    concat [x, skip], which the fused modes never build (as the JAX package's
+    ``ResBlock(skip=...)`` does) and the unfused one builds."""
+
+    def __init__(self, channels: int, d_t_emb: int, out_channels: Optional[int] = None,
+                 gn_conv: str = "unfused"):
         super().__init__()
+        if gn_conv not in GN_CONV_MODES:
+            raise ValueError(f"gn_conv must be one of {GN_CONV_MODES}, got {gn_conv!r}")
         out = out_channels or channels
+        self.gn_conv = gn_conv
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), _conv3x3(channels, out))
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(d_t_emb, out))
         # index 2 stands where the reference keeps its Dropout
         self.out_layers = nn.Sequential(GroupNorm32(out), nn.SiLU(), nn.Identity(), _conv3x3(out, out))
         self.skip_connection = nn.Identity() if out == channels else nn.Conv2d(channels, out, 1)
+        self._int8 = None  # per conv: (weight data_ptr, int8 weight, scales)
 
-    def forward(self, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
-        h = self.in_layers(x)
+    def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.gn_conv == "unfused":
+            if skip is not None:
+                x = torch.cat([x, skip], dim=1)
+            h = self.in_layers(x)
+            h = h + self.emb_layers(t_emb).to(h.dtype)[:, :, None, None]
+            return self.skip_connection(x) + self.out_layers(h)
+        # the kernels take contiguous NCHW (a SpatialTransformer's output is not)
+        x = x.contiguous()
+        skip = skip.contiguous() if skip is not None else None
+        norm = self.in_layers[0]
+        a, off = gn_affine(x, norm.weight, norm.bias, norm.GROUPS, norm.eps, skip)
+        if skip is None:
+            h = self._gn_conv(0, x, a, off)
+        else:
+            c1 = x.shape[1]
+            h = self._gn_conv(0, x, a[:, :c1], off[:, :c1], skip, a[:, c1:], off[:, c1:])
         h = h + self.emb_layers(t_emb).to(h.dtype)[:, :, None, None]
-        return self.skip_connection(x) + self.out_layers(h)
+        norm = self.out_layers[0]
+        a, off = gn_affine(h, norm.weight, norm.bias, norm.GROUPS, norm.eps)
+        # the residual is added in fp32 inside the kernel, before its one cast
+        return self._gn_conv(1, h, a, off, residual=self._residual(x, skip).contiguous())
+
+    def _residual(self, x: torch.Tensor, skip: Optional[torch.Tensor]) -> torch.Tensor:
+        sc = self.skip_connection
+        if skip is None:
+            return sc(x)
+        if isinstance(sc, nn.Identity):
+            return torch.cat([x, skip], dim=1)
+        # the 1x1 conv of the concat as two convs of its parts (JAX's ConcatConv)
+        c1 = x.shape[1]
+        y = F.conv2d(x, sc.weight[:, :c1]) + F.conv2d(skip, sc.weight[:, c1:])
+        return y + sc.bias.to(y.dtype)[:, None, None]
+
+    def _gn_conv(self, i, x, a, off, x2=None, a2=None, off2=None, residual=None):
+        """Site i (0: in_layers, 1: out_layers) through kernel 4 or 5."""
+        conv = (self.in_layers[2], self.out_layers[3])[i]
+        if self.gn_conv == "fused":
+            if x2 is None:
+                return gn_silu_conv3x3(x, a, off, conv.weight, conv.bias, residual)
+            return gn_silu_conv3x3_concat(x, a, off, x2, a2, off2, conv.weight, conv.bias, residual)
+        ptr, w_q, w_scale = self._int8[i] if self._int8 is not None else (None, None, None)
+        if ptr != conv.weight.data_ptr():
+            raise RuntimeError("gn_conv='int8' needs UNetModel.prepare_gn_conv() after the "
+                               "weights are set, cast or moved")
+        if x2 is None:
+            return gn_silu_conv3x3_q(x, a, off, w_q, w_scale, conv.bias, residual)
+        return gn_silu_conv3x3_concat_q(x, a, off, x2, a2, off2, w_q, w_scale, conv.bias, residual)
+
+    @torch.no_grad()
+    def prepare_gn_conv(self) -> None:
+        """In int8 mode, quantize both 3x3 weights as they are now (once per
+        weight, as JAX hoists ``quantize_conv_kernel`` out of its sampling
+        loop); a no-op otherwise."""
+        if self.gn_conv != "int8":
+            self._int8 = None
+            return
+        self._int8 = [(conv.weight.data_ptr(), *quantize_conv_kernel(conv.weight))
+                      for conv in (self.in_layers[2], self.out_layers[3])]
 
 
 class CrossAttention(nn.Module):
@@ -187,12 +269,15 @@ class UpSample(nn.Module):
 
 
 class TimestepEmbedSequential(nn.Sequential):
-    """Runs its layers in order, handing each the inputs it takes."""
+    """Runs its layers in order, handing each the inputs it takes (``skip`` to
+    the first ResBlock)."""
 
-    def forward(self, x: torch.Tensor, t_emb: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t_emb: torch.Tensor, cond: torch.Tensor,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self:
             if isinstance(layer, ResBlock):
-                x = layer(x, t_emb)
+                x = layer(x, t_emb, skip)
+                skip = None
             elif isinstance(layer, SpatialTransformer):
                 x = layer(x, cond)
             else:
@@ -202,7 +287,8 @@ class TimestepEmbedSequential(nn.Sequential):
 
 class UNetModel(nn.Module):
     """The epsilon-prediction UNet: ``x`` (B, in_channels, H, W), ``time_steps``
-    (B,), ``cond`` (B, n_cond, d_cond) -> (B, out_channels, H, W) in fp32."""
+    (B,), ``cond`` (B, n_cond, d_cond) -> (B, out_channels, H, W) in fp32.
+    ``gn_conv``: "unfused", "fused" or "int8" (see the module's docstring)."""
 
     def __init__(
         self,
@@ -215,6 +301,7 @@ class UNetModel(nn.Module):
         n_heads: int = 4,
         tf_layers: int = 1,
         d_cond: int = 512,
+        gn_conv: str = "unfused",
     ):
         super().__init__()
         self.channels = channels
@@ -235,7 +322,7 @@ class UNetModel(nn.Module):
         ch = channels
         for i in range(levels):
             for _ in range(n_res_blocks):
-                layers = [ResBlock(ch, d_time_emb, channels_list[i])]
+                layers = [ResBlock(ch, d_time_emb, channels_list[i], gn_conv)]
                 ch = channels_list[i]
                 if i in attention_levels:
                     layers.append(transformer(ch))
@@ -246,13 +333,14 @@ class UNetModel(nn.Module):
                 skip_channels.append(ch)
 
         self.middle_block = TimestepEmbedSequential(
-            ResBlock(ch, d_time_emb), transformer(ch), ResBlock(ch, d_time_emb)
+            ResBlock(ch, d_time_emb, gn_conv=gn_conv), transformer(ch),
+            ResBlock(ch, d_time_emb, gn_conv=gn_conv)
         )
 
         self.output_blocks = nn.ModuleList()
         for i in reversed(range(levels)):
             for j in range(n_res_blocks + 1):
-                layers = [ResBlock(ch + skip_channels.pop(), d_time_emb, channels_list[i])]
+                layers = [ResBlock(ch + skip_channels.pop(), d_time_emb, channels_list[i], gn_conv)]
                 ch = channels_list[i]
                 if i in attention_levels:
                     layers.append(transformer(ch))
@@ -272,8 +360,16 @@ class UNetModel(nn.Module):
             skips.append(h)
         h = self.middle_block(h, t_emb, cond)
         for block in self.output_blocks:
-            h = block(torch.cat([h, skips.pop()], dim=1), t_emb, cond)
+            h = block(h, t_emb, cond, skip=skips.pop())
         return self.out(h).float()
+
+    def prepare_gn_conv(self) -> None:
+        """Make each ResBlock's int8 weights from its weights as they are now:
+        in int8 mode, call after the weights are set, cast or moved
+        (``SDFTask`` does). A no-op in the other modes."""
+        for m in self.modules():
+            if isinstance(m, ResBlock):
+                m.prepare_gn_conv()
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:

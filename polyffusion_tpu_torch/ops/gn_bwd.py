@@ -15,7 +15,7 @@ no such fusion, so on a CUDA tensor every GroupNorm's backward is the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,27 +25,55 @@ MAX_CHANNELS_PER_GROUP = 64  # the kernel's shared-memory table
 _entry = []  # the C entry point, with its argument types set once
 
 
-def gn_primal(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """GroupNorm with one-pass fp32 statistics (E[x^2] - E[x]^2) whose
-    per-channel affine is folded in fp32 and applied in x's dtype. Returns
-    (y, mean_c, inv_c), the statistics fp32 (B, C), repeated per channel."""
-    b, c = x.shape[:2]
-    g = groups
+def _channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x32 = x.float()
-    s1 = x32.sum(dim=(2, 3))
-    s2 = (x32 * x32).sum(dim=(2, 3))
-    n = x[0, 0].numel() * (c // g)
+    return x32.sum(dim=(2, 3)), (x32 * x32).sum(dim=(2, 3))
+
+
+def _affine32(s1, s2, n_spatial: int, weight, bias, groups: int, eps: float):
+    """(a, off, mean_c, inv_c), all fp32 (B, C), from per-channel sums over
+    ``n_spatial`` positions: y = x * a + off is the normalised, scaled and
+    shifted x."""
+    b, c = s1.shape
+    g = groups
+    n = n_spatial * (c // g)
     mean = s1.view(b, g, c // g).sum(-1) / n
     meansq = s2.view(b, g, c // g).sum(-1) / n
     inv = torch.rsqrt(torch.clamp(meansq - mean * mean, min=0.0) + eps)
     inv_c = inv.repeat_interleave(c // g, dim=1)
     mean_c = mean.repeat_interleave(c // g, dim=1)
     scale = weight.float()
-    a = (inv_c * scale).to(x.dtype)
-    off = (bias.float() - mean_c * inv_c * scale).to(x.dtype)
+    return inv_c * scale, bias.float() - mean_c * inv_c * scale, mean_c, inv_c
+
+
+def gn_primal(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GroupNorm with one-pass fp32 statistics (E[x^2] - E[x]^2) whose
+    per-channel affine is folded in fp32 and applied in x's dtype. Returns
+    (y, mean_c, inv_c), the statistics fp32 (B, C), repeated per channel."""
+    a32, off32, mean_c, inv_c = _affine32(*_channel_sums(x), x[0, 0].numel(), weight, bias,
+                                          groups, eps)
+    a, off = a32.to(x.dtype), off32.to(x.dtype)
     return x * a[:, :, None, None] + off[:, :, None, None], mean_c, inv_c
+
+
+def gn_affine(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
+    x2: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The GroupNorm of ``x`` as its fp32 per-(batch, channel) affine (a, off),
+    y = x * a + off, unrounded: the input of the fused GroupNorm-SiLU-conv
+    kernel (``ops/fused_gn_conv.py``), as the JAX package's
+    ``FP32GroupNorm(return_affine=True)`` gives it. With ``x2`` the statistics
+    are those of the virtual channel concat [x, x2] (never built), and a and
+    off span C1 + C2 channels. Differentiable by autograd."""
+    s1, s2 = _channel_sums(x)
+    if x2 is not None:
+        t1, t2 = _channel_sums(x2)
+        s1, s2 = torch.cat([s1, t1], dim=1), torch.cat([s2, t2], dim=1)
+    a, off, _, _ = _affine32(s1, s2, x[0, 0].numel(), weight, bias, groups, eps)
+    return a, off
 
 
 def gn_bwd_reference(

@@ -1,7 +1,7 @@
 """Where the device time of one sampling step goes: a warm full-width
 ``sdf_chd8bar`` UNet eval in bf16 at the main path's CFG batch, on one GPU.
 
-    python -m polyffusion_tpu_torch.profile_unet
+    python -m polyffusion_tpu_torch.profile_unet [--gn_conv unfused|fused|int8]
 
 Prints the eval's time from CUDA events, then a ``torch.profiler`` breakdown of
 the same evals: device time per kernel class and the top kernels, and the share
@@ -10,6 +10,7 @@ of the window in which the device was idle. Weights are random (seeded).
 
 from __future__ import annotations
 
+import argparse
 import time
 from collections import defaultdict
 
@@ -19,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .config import load_params
 from .models import ChordEncoder
+from .models.unet import GN_CONV_MODES
 from .tasks import SDFTask
 
 # kernel-name fragments -> class, first match wins
@@ -27,6 +29,9 @@ CLASSES = (
     ("attn_bwd", "packed_attention_bwd (this port's kernel)"),
     ("gn_bwd", "gn_bwd (this port's kernel)"),
     ("packed_attention", "packed_attention (this port's kernel)"),
+    ("gn_silu_conv_q", "gn_silu_conv_q (this port's kernel 5)"),
+    ("gn_silu_amax", "gn_silu_amax (kernel 5's amax pass)"),
+    ("gn_silu_conv", "gn_silu_conv (this port's kernel 4)"),
     ("multi_tensor", "optimizer and master copies (foreach kernels)"),
     ("cudnn", "convolution (cuDNN, with its NCHW<->NHWC transposes)"),
     ("fprop", "convolution (cuDNN, with its NCHW<->NHWC transposes)"),
@@ -55,10 +60,13 @@ def classify(name: str) -> str:
     return "other"
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--gn_conv", default="unfused", choices=list(GN_CONV_MODES))
+    args = p.parse_args(argv)
     cfg = load_params("sdf_chd8bar")
     task = SDFTask(cfg, ChordEncoder(36, cfg.chd_hidden_dim, cfg.chd_z_dim),
-                   generator=torch.Generator().manual_seed(0))
+                   generator=torch.Generator().manual_seed(0), gn_conv=args.gn_conv)
     g = torch.Generator(device=task.device).manual_seed(0)
     x = torch.randn(BATCH, 2, 128, 128, device=task.device, generator=g)
     t = torch.full((BATCH,), 501, dtype=torch.int32, device=task.device)
@@ -77,7 +85,8 @@ def main() -> None:
         end.record()
         torch.cuda.synchronize()
         eval_ms = start.elapsed_time(end) / EVALS
-        print(f"{torch.cuda.get_device_name(0)}: UNet eval at batch {BATCH} bf16: "
+        print(f"{torch.cuda.get_device_name(0)}: UNet eval at batch {BATCH} bf16, "
+              f"gn_conv {args.gn_conv}: "
               f"{eval_ms:.3f} ms (CUDA events, mean of {EVALS})")
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -38,6 +38,7 @@ class SDFTask:
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
         training: bool = False,
+        gn_conv: str = "unfused",
     ):
         """``generator``: a CPU generator from which the UNet's weights are
         drawn; without it they keep torch's default init. ``chord_enc`` keeps
@@ -45,7 +46,10 @@ class SDFTask:
         the caller).
         Weights are made in fp32 and, for a ``bf16`` preset, cast for sampling
         (``utils/precision.py``) after any ``load_unet_state``, unless
-        ``training``: then they stay fp32, the trainer's master weights."""
+        ``training``: then they stay fp32, the trainer's master weights.
+        ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused",
+        or for sampling "int8", whose int8 weights are made whenever the
+        weights are placed)."""
         self.device = resolve_device(device)
         self.training = training
         self.cfg = cfg
@@ -56,6 +60,9 @@ class SDFTask:
         self.use_enc = bool(cfg.get("use_enc", False))
         if self.use_enc and chord_enc is None:
             raise ValueError("use_enc needs a chord encoder")
+        if training and gn_conv == "int8":
+            raise ValueError("gn_conv='int8' is sampling-only (no gradient): train with "
+                             "'unfused' or 'fused'")
         self.unet = UNetModel(
             in_channels=cfg.in_channels,
             out_channels=cfg.out_channels,
@@ -66,6 +73,7 @@ class SDFTask:
             n_heads=cfg.n_heads,
             tf_layers=cfg.tf_layers,
             d_cond=cfg.d_cond,
+            gn_conv=gn_conv,
         )
         self.chord_enc = chord_enc
         if generator is not None:
@@ -81,6 +89,7 @@ class SDFTask:
         if self.cfg.get("bf16", False) and not self.training:
             cast_sampling_params(self.unet)
         self.unet.to(self.device).train(self.training)
+        self.unet.prepare_gn_conv()
         if self.chord_enc is not None:
             self.chord_enc.to(self.device).eval().requires_grad_(False)
 

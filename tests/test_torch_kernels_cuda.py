@@ -21,6 +21,17 @@ from polyffusion_tpu_torch.ops.fused_attention import (
 from polyffusion_tpu_torch.config import load_params
 from polyffusion_tpu_torch.diffusion.sampler import _epilogue_scalars
 from polyffusion_tpu_torch.diffusion.schedule import make_schedule
+from polyffusion_tpu_torch.ops.fused_gn_conv import (
+    gn_silu_amax,
+    gn_silu_amax_reference,
+    gn_silu_conv3x3,
+    gn_silu_conv3x3_concat,
+    gn_silu_conv3x3_concat_q,
+    gn_silu_conv3x3_q,
+    gn_silu_conv3x3_q_reference,
+    gn_silu_conv3x3_reference,
+    quantize_conv_kernel,
+)
 from polyffusion_tpu_torch.ops.gn_bwd import gn_bwd_reference, gn_primal, group_norm_bwd
 from polyffusion_tpu_torch.ops.repaint_epilogue import (
     fused_repaint_epilogue,
@@ -32,6 +43,8 @@ BWD_LIMITS = {torch.bfloat16: (2e-3, 2**-6), torch.float32: (1e-6, 0.0)}
 GN_LIMITS = {torch.bfloat16: (1e-4, 2**-6), torch.float32: (1e-6, 1e-6)}
 GN_PARAM_LIMIT = (1e-3, 1e-5)
 EPI_LIMIT = (1e-5, 1e-5)
+GN_CONV_LIMITS = {torch.bfloat16: (1e-3, 2**-6), torch.float32: (1e-5, 1e-5)}
+GN_CONV_Q_LIMITS = {torch.bfloat16: (1e-3, 2**-6), torch.float32: (1e-3, 1e-5)}
 
 
 def _card():
@@ -188,3 +201,125 @@ def test_cuda_repaint_epilogue_refuses_strided_tensors():
     with pytest.raises(ValueError, match="contiguous"):
         fused_repaint_epilogue(*tensors, [1.0] * 7)
     assert fused_repaint_epilogue.launches == before
+
+
+# (B, C1, C2, O, H, W): main-path sites, then ragged shapes the kernels mask
+# (W not a power of two, H short of a tile, channels and O off the 32/64 tiles)
+GN_CONV_SHAPES = [
+    (2, 64, 0, 64, 128, 128),
+    (2, 128, 64, 64, 128, 128),
+    (2, 64, 0, 128, 64, 64),
+    (2, 256, 256, 256, 16, 16),
+    (3, 64, 32, 64, 8, 8),
+    (2, 96, 0, 80, 12, 20),
+    (2, 40, 24, 48, 10, 10),
+]
+
+
+def _gn_conv_inputs(g, b, c1, c2, o, h, w, dtype, residual):
+    f = lambda *s: torch.randn(*s, device="cuda", generator=g)  # noqa: E731
+    d = dict(x=f(b, c1, h, w).to(dtype), a=f(b, c1) * 0.5 + 1, off=f(b, c1) * 0.3,
+             w=(f(o, c1 + c2, 3, 3) * (9 * (c1 + c2)) ** -0.5).to(dtype), b=f(o) * 0.1,
+             res=f(b, o, h, w).to(dtype) if residual else None, x2=None, a2=None, off2=None)
+    if c2:
+        d.update(x2=f(b, c2, h, w).to(dtype), a2=f(b, c2) * 0.5 + 1, off2=f(b, c2) * 0.3)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True], ids=["", "residual"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", GN_CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_gn_conv_matches_plain(shape, dtype, residual):
+    """Kernel 4 against its plain version; the limit must also catch a halo of
+    SiLU(off) in place of 0."""
+    g = _card()
+    d = _gn_conv_inputs(g, *shape, dtype, residual)
+    before = gn_silu_conv3x3.launches
+    if d["x2"] is None:
+        got = gn_silu_conv3x3(d["x"], d["a"], d["off"], d["w"], d["b"], d["res"])
+    else:
+        got = gn_silu_conv3x3_concat(d["x"], d["a"], d["off"], d["x2"], d["a2"], d["off2"], d["w"],
+                                     d["b"], d["res"])
+    torch.cuda.synchronize()
+    assert gn_silu_conv3x3.launches == before + 1
+    want = gn_silu_conv3x3_reference(d["x"], d["a"], d["off"], d["w"], d["b"], d["res"], d["x2"],
+                                     d["a2"], d["off2"])
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _within(got, want, *GN_CONV_LIMITS[dtype])
+    assert not _within(_silu_halo_fault(d, dtype), want, *GN_CONV_LIMITS[dtype])
+
+
+def _silu_halo_fault(d, dtype):
+    """The plain version with the SiLU'd input padded by SiLU(off) in place
+    of 0: the planted fault of kernel 4's check."""
+    F = torch.nn.functional
+    ys = []
+    for x, a, off in ((d["x"], d["a"], d["off"]), (d["x2"], d["a2"], d["off2"])):
+        if x is None:
+            continue
+        b, c, h, w = x.shape
+        y = F.silu(off)[:, :, None, None].expand(b, c, h + 2, w + 2).clone()
+        y[:, :, 1:-1, 1:-1] = F.silu(x.float() * a[:, :, None, None] + off[:, :, None, None])
+        ys.append(y.to(dtype).float())
+    out = F.conv2d(torch.cat(ys, 1), d["w"].float()) + d["b"][:, None, None]
+    if d["res"] is not None:
+        out = out + d["res"].float()
+    return out.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", GN_CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_gn_conv_q_matches_plain(shape, dtype):
+    """Kernel 5 (its amax pass, then its int8 convolution) against its plain
+    version."""
+    g = _card()
+    d = _gn_conv_inputs(g, *shape, dtype, residual=shape[2] == 0)
+    w_q, w_scale = quantize_conv_kernel(d["w"])
+    parts = gn_silu_amax(d["x"], d["a"], d["off"], d["x2"], d["a2"], d["off2"])
+    torch.cuda.synchronize()
+    assert torch.equal(parts.amax(1), gn_silu_amax_reference(d["x"], d["a"], d["off"], d["x2"],
+                                                             d["a2"], d["off2"]))
+    before = (gn_silu_conv3x3_q.launches, gn_silu_amax.launches)
+    if d["x2"] is None:
+        got = gn_silu_conv3x3_q(d["x"], d["a"], d["off"], w_q, w_scale, d["b"], d["res"])
+    else:
+        got = gn_silu_conv3x3_concat_q(d["x"], d["a"], d["off"], d["x2"], d["a2"], d["off2"], w_q,
+                                       w_scale, d["b"], d["res"])
+    torch.cuda.synchronize()
+    assert (gn_silu_conv3x3_q.launches, gn_silu_amax.launches) == (before[0] + 1, before[1] + 1)
+    want = gn_silu_conv3x3_q_reference(d["x"], d["a"], d["off"], w_q, w_scale, d["b"], d["res"],
+                                       d["x2"], d["a2"], d["off2"])
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _within(got, want, *GN_CONV_Q_LIMITS[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_gn_conv_gradient_matches_plain():
+    """Autograd through kernel 4's function on the card (its backward
+    recomputes through the plain version) against autograd of the plain
+    version: the same computation, up to the order of cuDNN's backward sums."""
+    g = _card()
+    d = _gn_conv_inputs(g, 2, 64, 32, 64, 16, 16, torch.float32, False)
+    names = ["x", "a", "off", "x2", "a2", "off2", "w", "b"]
+    leaves = {n: d[n].clone().requires_grad_() for n in names}
+    co = torch.randn(2, 64, 16, 16, device="cuda", generator=g)
+    out = gn_silu_conv3x3_concat(*(leaves[n] for n in names))
+    got = torch.autograd.grad(out, list(leaves.values()), co)
+    ref = {n: d[n].clone().requires_grad_() for n in names}
+    want = torch.autograd.grad(gn_silu_conv3x3_reference(
+        ref["x"], ref["a"], ref["off"], ref["w"], ref["b"], None, ref["x2"], ref["a2"],
+        ref["off2"]), list(ref.values()), co)
+    for x, y in zip(got, want):
+        assert _within(x, y, 1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_conv_refuses_strided_input():
+    g = _card()
+    d = _gn_conv_inputs(g, 2, 64, 0, 64, 16, 16, torch.bfloat16, False)
+    before = gn_silu_conv3x3.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        gn_silu_conv3x3(d["x"].transpose(2, 3), d["a"], d["off"], d["w"], d["b"])
+    assert gn_silu_conv3x3.launches == before
