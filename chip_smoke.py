@@ -6,8 +6,8 @@
 From the root of a checkout, with one CUDA card. It builds the port's CUDA
 kernels from the sources in the checkout (one ``nvcc`` per source, in
 parallel), holds every kernel against its plain PyTorch version on the card
-(with a planted fault that must fail each limit; kernel 4's gradient through
-its autograd function too), holds the full-width fp32 UNet eval (with the
+(with a planted fault that must fail each limit; kernels 3 and 4's gradients
+through their autograd functions too), holds the full-width fp32 UNet eval (with the
 GroupNorm-SiLU-conv sites unfused and fused), one full-width fp32 train step
 and a full-width fp32 DDPM RePaint run on the card against the CPU, and the
 full-width bf16 UNet's int8 eps against its fused eps, then drives the main paths through the user's entry points, each with the
@@ -26,7 +26,15 @@ kernels' launch counts set to 0 just before it and read just after:
   of a song's lower voices (``--inpaint_type below``, 2 segments, CFG 5), then
   (B) piece-batched long-form generation at DDIM-50 (``--autoreg --ddim``,
   3 segments, 2 pieces, CFG 5), then (C) ``--gn_conv int8 --ddim`` over 2
-  segments; and a profiled window of request A's steps.
+  segments; and a profiled window of request A's steps;
+- the head-major attention (kernel 3, on no model path as in the JAX
+  package): its public op called directly at (512, 1024 / 256, 64) bf16;
+- the texture and PianoTree conditions, with seeded random ``polydis.pt`` and
+  ``pnotree.pt`` beside the training's ``chd8bar.pt``: the five presets'
+  conditions and an ``sdf_chd8bar_txt`` UNet eval on the card against the
+  CPU, a DDIM-50 CFG-5 request of ``sdf_chd8bar_txt`` at batch 64 and of
+  ``sdf_txtvnl`` at batch 16, ``sdf_chd8bar_txt_mix2`` trained for 12 steps
+  through ``polyffusion_tpu_torch.main`` and sampled through the CLI.
 
 Every phase raises on failure and the script then exits non-zero without a
 result. It imports nothing of JAX or of the JAX package.
@@ -127,6 +135,19 @@ GNQ_FP32_ATOL, GNQ_FP32_RTOL = 1e-3, 1e-5
 # int8 eps against fused eps of the full-width bf16 UNet: the bound of the JAX
 # package's tests/test_int8_gn_conv.py:190
 INT8_EPS_REL = 0.05
+# Kernel 3 (head-major attention) against its plain version: kernel 1's limits.
+# Shapes (BH, T, D): the JAX package's tests', ragged T (the kernel takes any
+# T >= 1), each in fp32 and bf16; then a batch-128 level-2 / level-3
+# self-attention (4 heads) in head-major form, bf16.
+HEAD_MAJOR_SHAPES = [(8, 256, 64), (4, 1024, 64), (6, 128, 128), (7, 256, 64), (4, 200, 64),
+                     (3, 1000, 128)]
+HEAD_MAJOR_MODEL = [(512, 1024, 64), (512, 256, 64)]
+# the texture and PianoTree conditions: the encoders card against CPU within the
+# encoder tolerance of tests/test_torch_encoders.py:25-26
+COND_ATOL = 2e-5
+COND_PRESETS = ("sdf_txt", "sdf_txtvnl", "sdf_chd8bar_txt", "sdf_chd8bar_txt_mix2", "sdf_pnotree")
+COND_REQUESTS = (("sdf_chd8bar_txt", 64), ("sdf_txtvnl", 16))  # (preset, batch), DDIM-50 CFG 5
+MIX2_STEPS = 12
 GN_CONV_SITES, GN_CONV_TWO_INPUT = 44, 12  # per UNet eval: 22 ResBlocks x 2; decoder in_layers
 GN_CONV_BATCH = 64
 # the batch-128 sites of one UNet eval (C1, C2, O, H = W, residual, sites):
@@ -328,6 +349,119 @@ def check_attention_bwd():
         rows.append(row)
         del q, k, v, do, got, want, leaves, out, dov
     return rows
+
+
+def check_head_major_attention():
+    """Kernel 3 against its plain version (and SDPA on the same head-major
+    tensors as a yardstick) at HEAD_MAJOR_SHAPES in fp32 and bf16 and at
+    HEAD_MAJOR_MODEL in bf16, each with a planted fault that must fail the
+    limit (the plain version without its last key tile, ragged or not); then
+    the gradient through its autograd function (the kernel forward, a backward
+    that recomputes through the plain version) against the plain version's
+    autograd on the CPU, per input in norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from polyffusion_tpu_torch.ops.fused_attention import (
+        TILE,
+        fused_self_attention,
+        head_major_attention_reference,
+    )
+
+    cases = [(bh, t, d, dtype) for bh, t, d in HEAD_MAJOR_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(bh, t, d, torch.bfloat16) for bh, t, d in HEAD_MAJOR_MODEL]
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for bh, t, d, dtype in cases:
+        atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (FP32_ATOL, FP32_RTOL)
+        q, k, v = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype) for _ in range(3))
+        scale = d**-0.5
+        got = fused_self_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = head_major_attention_reference(q, k, v, scale)
+        err = (got.float() - want.float()).abs().max().item()
+        ratio = limit_ratio(got, want, atol, rtol)
+        last = t % TILE or TILE
+        fault = head_major_attention_reference(q, k[:, :-last], v[:, :-last], scale)
+        fault_ratio = limit_ratio(fault, want, atol, rtol)
+        del fault
+        if not (ratio <= 1.0 and torch.isfinite(got).all()):
+            raise AssertionError(f"head_major_attention BH={bh} T={t} D={d} {dtype}: max_abs_err "
+                                 f"{err}, {ratio:.3g} x the limit (atol {atol}, rtol {rtol})")
+        if not fault_ratio > 1.0:
+            raise AssertionError(f"the limit at BH={bh} T={t} D={d} {dtype} does not catch a "
+                                 f"dropped key tile ({fault_ratio:.3g} x the limit)")
+        views = [x[:, None] for x in (q, k, v)]
+        ms = time_in_turns({
+            "kernel": lambda: fused_self_attention(q, k, v, scale),
+            "plain": lambda: head_major_attention_reference(q, k, v, scale),
+            "library": lambda: F.scaled_dot_product_attention(*views, scale=scale),
+        })
+        dname = str(dtype).split(".")[1]
+        bound, bound_by = attention_bound(bh, t, 1, d, dname, q.element_size())
+        row = dict(shape=f"BH={bh} T={t} D={d} {dname}", max_abs_err=err, atol=atol, rtol=rtol,
+                   limit_ratio=ratio, fault_limit_ratio=fault_ratio, ms=ms["kernel"],
+                   plain_ms=ms["plain"], library_ms=ms["library"], bound_ms=bound,
+                   bound_by=bound_by)
+        log(f"[kernel] head_major_attention {row['shape']}: max_abs_err {err:.3g}, {ratio:.3g} x "
+            f"the limit (atol {atol}, rtol {rtol:.3g}; last key tile dropped: {fault_ratio:.3g} "
+            f"x)  kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  sdpa "
+            f"{ms['library']:.4f} ms  bound {bound:.4f} ms ({bound_by})")
+        rows.append(row)
+        del q, k, v, got, want, views
+
+    bh, t, d = 4, 200, 64
+    qkv = [torch.randn(bh, t, d, device="cuda", generator=g) for _ in range(3)]
+    co = torch.randn(bh, t, d, device="cuda", generator=g)
+    leaves = [x.clone().requires_grad_() for x in qkv]
+    before = fused_self_attention.launches
+    out = fused_self_attention(*leaves, d**-0.5)
+    if (fused_self_attention.launches != before + 1
+            or "HeadMajorAttention" not in type(out.grad_fn).__name__):
+        raise AssertionError("the head-major function's forward is not the kernel")
+    got = torch.autograd.grad(out, leaves, co)
+    cpu = [x.cpu().requires_grad_() for x in qkv]
+    want = torch.autograd.grad(head_major_attention_reference(*cpu, d**-0.5), cpu, co.cpu())
+    worst = max(((a.cpu() - w).norm() / (GNC_GRAD_RTOL * w.norm())).item()
+                for a, w in zip(got, want))
+    log(f"[kernel] head_major_attention gradient through its function at BH={bh} T={t} D={d} "
+        f"float32, card against the plain version's autograd on the CPU: {worst:.3g} x the "
+        f"limit (rel {GNC_GRAD_RTOL} in norm per input)")
+    if not worst <= 1.0:
+        raise AssertionError("kernel 3's gradient disagrees with the plain version's")
+    return rows
+
+
+def drive_head_major(counters):
+    """Kernel 3 is on no model path (the JAX package's dispatcher sends every
+    UNet attention to the packed kernel): drive its public op directly, as a
+    caller would, at HEAD_MAJOR_MODEL in bf16, a forward and a forward with
+    its backward at each, with the launch counts set to 0 just before and read
+    just after. Returns its launches."""
+    import torch
+
+    from polyffusion_tpu_torch.ops.fused_attention import fused_self_attention
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    zero_counts(counters)
+    for bh, t, d in HEAD_MAJOR_MODEL:
+        q, k, v = (torch.randn(bh, t, d, device="cuda", generator=g, dtype=torch.bfloat16)
+                   for _ in range(3))
+        with torch.no_grad():
+            out = fused_self_attention(q, k, v, d**-0.5)
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        grads = torch.autograd.grad(fused_self_attention(*leaves, d**-0.5).float().square().sum(),
+                                    leaves)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out).all() and all(torch.isfinite(x).all() for x in grads)):
+            raise AssertionError(f"head-major attention at BH={bh} T={t}: non-finite output")
+    got = {name: fn.launches for name, fn in counters.items()}
+    want = dict({name: 0 for name in counters}, head_major_attention=2 * len(HEAD_MAJOR_MODEL))
+    log(f"[head_major] direct calls at {HEAD_MAJOR_MODEL} bf16: launches {got}")
+    if got != want:
+        raise AssertionError(f"expected launches {want}, got {got}")
+    return got["head_major_attention"]
 
 
 def check_gn_bwd():
@@ -762,15 +896,21 @@ def make_task(cfg, device, seed, training=False, gn_conv="unfused"):
 def check_unet_against_cpu(gn_conv="unfused"):
     """One full-width fp32 UNet eval at batch 2 doubled by CFG: the card (with
     the kernels) against the CPU (with their plain versions)."""
+    cfg = full_cfg(bf16=False)
+    unet_card_vs_cpu(make_task(cfg, "cuda", seed=1, gn_conv=gn_conv),
+                     make_task(cfg, "cpu", seed=1, gn_conv=gn_conv), None, f"gn_conv {gn_conv}")
+
+
+def unet_card_vs_cpu(gpu, cpu, cond, label):
+    """``gpu.apply_eps`` against ``cpu.apply_eps`` (the same fp32 weights) at
+    batch 2 doubled by CFG, for ``cond`` (random when None)."""
     import torch
 
-    cfg = full_cfg(bf16=False)
-    gpu = make_task(cfg, "cuda", seed=1, gn_conv=gn_conv)
-    cpu = make_task(cfg, "cpu", seed=1, gn_conv=gn_conv)
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.standard_normal((2, 2, 128, 128)).astype(np.float32))
     t = torch.tensor([981, 401], dtype=torch.int32)
-    cond = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_cond)).astype(np.float32))
+    if cond is None:
+        cond = torch.from_numpy(rng.standard_normal((2, 1, gpu.cfg.d_cond)).astype(np.float32))
     x2, t2 = torch.cat([x, x]), torch.cat([t, t])
     c2 = torch.cat([-torch.ones_like(cond), cond])
     with torch.inference_mode():
@@ -782,13 +922,12 @@ def check_unet_against_cpu(gn_conv="unfused"):
         t_cpu = time.perf_counter() - t0
     err = (got - want).abs()
     ok = bool((err <= UNET_ATOL + UNET_RTOL * want.abs()).all())
-    log(f"[unet] full-width fp32 (B=4, gn_conv {gn_conv}) card vs CPU: max_abs_err "
+    log(f"[unet] full-width fp32 (B=4, {label}) card vs CPU: max_abs_err "
         f"{err.max().item():.3g} "
         f"(atol {UNET_ATOL}, rtol {UNET_RTOL}), |out| max {want.abs().max().item():.3g}, "
         f"card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
     if not ok or not torch.isfinite(got).all():
-        raise AssertionError(f"full-width UNet (gn_conv {gn_conv}) on the card disagrees with "
-                             "the CPU")
+        raise AssertionError(f"full-width UNet ({label}) on the card disagrees with the CPU")
 
 
 def check_int8_against_fused():
@@ -1256,6 +1395,186 @@ def profile_inpainting(work, mask, request_secs):
             f"{1 - CLI_DDPM_STEPS * step_ms / (request_secs * 1e3):.4f}")
 
 
+def write_condition_encoders(pretrained, seed):
+    """Seeded random full-width texture and PianoTree encoders in the
+    reference's layouts, beside the training path's ``chd8bar.pt``:
+    ``polydis.pt`` (a PolyDis learner checkpoint, the encoder under
+    ``rhy_encoder.``) and ``pnotree.pt`` (the PianoTree VAE's state dict)."""
+    import torch
+
+    from polyffusion_tpu_torch.models import PianoTreeEncoder, TextureEncoder, init_weights_
+
+    g = torch.Generator().manual_seed(seed)
+    txt = init_weights_(TextureEncoder(), g)
+    torch.save({"model": {f"rhy_encoder.{k}": v for k, v in txt.state_dict().items()}},
+               os.path.join(pretrained, "polydis.pt"))
+    torch.save(init_weights_(PianoTreeEncoder(), g).state_dict(),
+               os.path.join(pretrained, "pnotree.pt"))
+
+
+def cond_task(name, device, pretrained, seed=0, bf16=None, tiny=False):
+    """The task of a condition preset with the frozen encoders from
+    ``pretrained`` and UNet weights from ``seed``; ``tiny`` cuts the UNet to
+    one level without attention (for checks that never run it)."""
+    import torch
+
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.models.encoders import build_frozen_encoders
+    from polyffusion_tpu_torch.tasks import SDFTask
+
+    cfg = load_params(name)
+    if bf16 is not None:
+        cfg.bf16 = bf16
+    if tiny:
+        cfg.update(channels=32, channel_multipliers=[1], attention_levels=[], n_res_blocks=1)
+    return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained), device=device,
+                   generator=torch.Generator().manual_seed(seed))
+
+
+def song_batch(data, b):
+    """The first batch of ``b`` segments of the songs in ``data`` (unshuffled,
+    not augmented), as tensors (prmat2c, pnotree, chord, prmat)."""
+    import torch
+
+    from polyffusion_tpu_torch.data import BatchLoader, SegmentDataset
+
+    batch = next(iter(BatchLoader(SegmentDataset.from_dir(data), b)))
+    return tuple(torch.from_numpy(a) for a in batch)
+
+
+def check_conditions_against_cpu(work):
+    """The five condition presets in fp32, card against CPU, on 8 segments of
+    the synthetic songs: ``encode_cond`` (the frozen chord, texture and
+    PianoTree encoders, full width) within COND_ATOL; then one full-width
+    ``sdf_chd8bar_txt`` UNet eval on that condition within the UNet
+    tolerance."""
+    import torch
+
+    pretrained, data = os.path.join(work, "pretrained"), os.path.join(work, "songs")
+    batch = song_batch(data, 8)
+    for name in COND_PRESETS:
+        conds = {}
+        for device in ("cuda", "cpu"):
+            task = cond_task(name, device, pretrained, bf16=False, tiny=True)
+            t0 = time.perf_counter()
+            conds[device] = (task.encode_cond(batch).cpu(), time.perf_counter() - t0)
+        (got, t_gpu), (want, t_cpu) = conds["cuda"], conds["cpu"]
+        err = (got - want).abs().max().item()
+        log(f"[cond] {name} encode_cond {tuple(want.shape)} card vs CPU: max_abs_err {err:.3g} "
+            f"(atol {COND_ATOL}), |cond| max {want.abs().max().item():.3g}; card {t_gpu:.2f} s "
+            f"(first call), CPU {t_cpu:.2f} s")
+        if not (err <= COND_ATOL and torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: the condition on the card disagrees with the CPU")
+        if name == "sdf_chd8bar_txt":
+            chd_txt = want[:2]
+    unet_card_vs_cpu(cond_task("sdf_chd8bar_txt", "cuda", pretrained, seed=4, bf16=False),
+                     cond_task("sdf_chd8bar_txt", "cpu", pretrained, seed=4, bf16=False),
+                     chd_txt, "sdf_chd8bar_txt, d_cond 1536")
+
+
+def drive_condition_requests(counters, work):
+    """A warm DDIM-50 CFG-5 request of each of COND_REQUESTS at full width in
+    bf16 (its conditions from the songs' segments: chord + texture means, or
+    the raw 128-token prmat), with the launch counts set to 0 just before it
+    and read just after: 550 kernel-1 launches each (the 128-token
+    cross-attention takes the plain route). Returns launches and samples/s
+    by preset."""
+    import torch
+
+    from polyffusion_tpu_torch.inference import InferenceSession
+
+    pretrained, data = os.path.join(work, "pretrained"), os.path.join(work, "songs")
+    zero = {name: 0 for name in counters}
+    launches, rates = {}, {}
+    for name, b in COND_REQUESTS:
+        task = cond_task(name, None, pretrained)
+        batch = song_batch(data, b)
+        # warm: the same batch through a 2-step session
+        InferenceSession(task, sampler="ddim", ddim_steps=2, seed=1).generate(
+            task.encode_cond(batch), uncond_scale=5.0)
+        session = InferenceSession(task, sampler="ddim", ddim_steps=50, seed=0)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cond = task.encode_cond(batch)
+        gen = session.generate(cond, uncond_scale=5.0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        rates[name] = b / secs
+        log(f"[cond] {name} request: batch {b}, condition {tuple(cond.shape)}: {secs:.3f} s, "
+            f"{rates[name]:.3f} samples/s, launches {launches[name]}")
+        want = dict(zero, packed_attention=LAUNCHES_PER_REQUEST)
+        if launches[name] != want:
+            raise AssertionError(f"expected launches {want}, got {launches[name]}")
+        if gen.shape != (b, 2, 128, 128) or not np.isfinite(gen).all():
+            raise AssertionError(f"bad output: shape {gen.shape}")
+        del task, session
+    return launches, rates
+
+
+def drive_mix2_paths(counters, work):
+    """``polyffusion_tpu_torch.main`` for the full-width bf16
+    ``sdf_chd8bar_txt_mix2`` at its batch 16 on the training path's songs and
+    encoders, MIX2_STEPS steps, one validation and one checkpoint; then the
+    inference CLI on that run directory, ``--ddim --length 2 --uncond_scale
+    5``. Each with the launch counts set to 0 just before it and read just
+    after; returns both runs' launches."""
+    import torch
+
+    from polyffusion_tpu_torch.data import BatchLoader, SegmentDataset
+    from polyffusion_tpu_torch.inference import main as infer_main
+    from polyffusion_tpu_torch.main import main as train_main
+
+    pretrained, data = os.path.join(work, "pretrained"), os.path.join(work, "songs")
+    run, out = os.path.join(work, "run_mix2"), os.path.join(work, "gen_mix2")
+    _, val_ds = SegmentDataset.train_val_from_dir(data, 0.9)
+    val_batches = len(BatchLoader(val_ds, 16))
+    zero = {name: 0 for name in counters}
+
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_main(["--model", "sdf_chd8bar_txt_mix2", "--output_dir", run, "--data_dir", data,
+                        "--pretrained_dir", pretrained, "--log_every", "4", "--seed", "0",
+                        "--max_steps", str(MIX2_STEPS)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    training = {name: fn.launches for name, fn in counters.items()}
+    want = dict(zero, packed_attention=ATTENTION_SITES * (MIX2_STEPS + val_batches),
+                packed_attention_bwd=ATTENTION_SITES * MIX2_STEPS,
+                gn_bwd=GROUPNORM_SITES * MIX2_STEPS)
+    records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+    losses = [r[k] for r in records for k in ("train/loss", "val/loss") if k in r]
+    log(f"[cond] sdf_chd8bar_txt_mix2 training: {MIX2_STEPS} steps and {val_batches} val batches "
+        f"in {secs:.3f} s (with setup), losses {[round(x, 5) for x in losses]}, launches "
+        f"{training}")
+    if training != want:
+        raise AssertionError(f"expected launches {want}, got {training}")
+    if not (state.step == MIX2_STEPS and losses and np.isfinite(losses).all()
+            and os.path.getsize(os.path.join(run, "chkpts", "last.pt"))):
+        raise AssertionError(f"the mix2 run ended at step {state.step} with losses {losses}")
+
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (gen,) = infer_main(["--chkpt_path", run, "--data_dir", data, "--song_fn", CLI_SONG,
+                         "--pretrained_dir", pretrained, "--ddim", "--length", "2",
+                         "--uncond_scale", "5", "--output_dir", out])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cli = {name: fn.launches for name, fn in counters.items()}
+    mids = sorted(f for f in os.listdir(out) if f.endswith(".mid"))
+    log(f"[cond] sdf_chd8bar_txt_mix2 CLI request (--ddim --length 2 --uncond_scale 5): "
+        f"{secs:.3f} s, launches {cli}, wrote {mids}")
+    if cli != dict(zero, packed_attention=ATTENTION_SITES * CLI_DDIM_STEPS):
+        raise AssertionError(f"expected {ATTENTION_SITES * CLI_DDIM_STEPS} kernel-1 launches, "
+                             f"got {cli}")
+    if len(mids) != 1 or gen.shape != (2, 2, 128, 128) or not np.isfinite(gen).all():
+        raise AssertionError(f"bad CLI output: {mids}, shape {gen.shape}")
+    return training, cli
+
+
 def main() -> int:
     import torch
 
@@ -1265,7 +1584,11 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from polyffusion_tpu_torch.device import tf32
     from polyffusion_tpu_torch.ops import _build
-    from polyffusion_tpu_torch.ops.fused_attention import packed_attention_bwd, packed_self_attention
+    from polyffusion_tpu_torch.ops.fused_attention import (
+        fused_self_attention,
+        packed_attention_bwd,
+        packed_self_attention,
+    )
     from polyffusion_tpu_torch.ops.fused_gn_conv import (
         gn_silu_amax,
         gn_silu_conv3x3,
@@ -1293,6 +1616,7 @@ def main() -> int:
 
     rows = check_packed_attention()
     bwd_rows = check_attention_bwd()
+    hm_rows = check_head_major_attention()
     gn_rows = check_gn_bwd()
     epi_rows = check_repaint_epilogue()
     gnc_rows = check_gn_conv(quantized=False)
@@ -1314,9 +1638,11 @@ def main() -> int:
     if sampling == 0:
         raise AssertionError("the main path never launched packed_attention")
     counters = {"packed_attention": packed_self_attention,
-                "packed_attention_bwd": packed_attention_bwd, "gn_bwd": group_norm_bwd,
+                "packed_attention_bwd": packed_attention_bwd,
+                "head_major_attention": fused_self_attention, "gn_bwd": group_norm_bwd,
                 "repaint_epilogue": fused_repaint_epilogue, "gn_silu_conv": gn_silu_conv3x3,
                 "gn_silu_conv_q": gn_silu_conv3x3_q, "gn_silu_amax": gn_silu_amax}
+    head_major = drive_head_major(counters)
     gn_conv_paths, _ = drive_gn_conv_requests(counters)
     with tempfile.TemporaryDirectory() as work:
         training = drive_training_path(counters, work)
@@ -1324,6 +1650,11 @@ def main() -> int:
             raise AssertionError(f"the training path did not launch every kernel: {training}")
         cli, request_secs, mask = drive_inference_cli(counters, work)
         profile_inpainting(work, mask, request_secs)
+        # the texture and PianoTree conditions, on the same songs and chd8bar.pt
+        write_condition_encoders(os.path.join(work, "pretrained"), seed=6)
+        check_conditions_against_cpu(work)
+        cond_requests, _ = drive_condition_requests(counters, work)
+        mix2_training, mix2_cli = drive_mix2_paths(counters, work)
 
     def entry(name, source, replaces, launches, rows, main_row, errs_of):
         return {
@@ -1345,6 +1676,7 @@ def main() -> int:
 
     fwd_bf16 = [r for r in rows if r["shape"].endswith("bfloat16")]
     bf16 = [r for r in bwd_rows if r["shape"].endswith("bfloat16")]
+    hm_bf16 = [r for r in hm_rows if r["shape"].endswith("bfloat16")]
     gn_bf16 = [r for r in gn_rows if r["shape"].endswith("bfloat16")]
     kernels = [
         # B=128 T=1024 bf16: the sampling path's dominant shape
@@ -1352,16 +1684,26 @@ def main() -> int:
               "polyffusion_tpu/ops/fused_attention.py:53",
               {"sampling": sampling, "training": training["packed_attention"],
                "inpainting": cli["inpainting"]["packed_attention"],
-               "autoreg": cli["autoreg"]["packed_attention"]},
+               "autoreg": cli["autoreg"]["packed_attention"],
+               **{f"sampling_{name}": n["packed_attention"] for name, n in cond_requests.items()},
+               "training_mix2": mix2_training["packed_attention"],
+               "cli_mix2": mix2_cli["packed_attention"]},
               rows, rows[0], fwd_bf16),
         # B=16 T=1024 bf16: the train step's dominant shape
         entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
               "polyffusion_tpu/ops/fused_attention.py:111",
-              {"training": training["packed_attention_bwd"]}, bwd_rows, bf16[0], bf16),
+              {"training": training["packed_attention_bwd"],
+               "training_mix2": mix2_training["packed_attention_bwd"]}, bwd_rows, bf16[0], bf16),
+        # BH=512 T=1024 D=64 bf16: a batch-128 level-2 self-attention in head-major
+        # form; on no model path, driven directly
+        entry("head_major_attention", "polyffusion_tpu_torch/ops/csrc/packed_attention.cu",
+              "polyffusion_tpu/ops/fused_attention.py:29", {"direct": head_major}, hm_rows,
+              [r for r in hm_bf16 if r["shape"].startswith("BH=512 T=1024")][0], hm_bf16),
         # B=16 C=64 128x128 bf16: the largest GroupNorm of the train step
         entry("gn_bwd", "polyffusion_tpu_torch/ops/csrc/gn_bwd.cu",
               "polyffusion_tpu/ops/gn_bwd.py:66",
-              {"training": training["gn_bwd"]}, gn_rows, gn_bf16[0], gn_bf16),
+              {"training": training["gn_bwd"], "training_mix2": mix2_training["gn_bwd"]},
+              gn_rows, gn_bf16[0], gn_bf16),
         # B=2 2x128x128 fp32: request A's sampler batch
         entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",
               "polyffusion_tpu/ops/pallas_sampler.py:33",

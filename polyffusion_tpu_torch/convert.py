@@ -101,17 +101,45 @@ def unet_state_from_jax(params: Mapping) -> StateDict:
     return out
 
 
+def _bigru(out: StateDict, tk: str, sub: Mapping) -> None:
+    """A JAX ``BiGRU`` (``fwd``/``bwd`` of wi, wh, bi, bh; gates r | z | n in
+    column blocks) -> ``nn.GRU`` layer 0 and its ``_reverse`` (rows r | z | n)."""
+    for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+        g = sub[direction]
+        out[f"{tk}.weight_ih_l0{sfx}"] = _t(np.asarray(g["wi"]).T)
+        out[f"{tk}.weight_hh_l0{sfx}"] = _t(np.asarray(g["wh"]).T)
+        out[f"{tk}.bias_ih_l0{sfx}"] = _t(g["bi"])
+        out[f"{tk}.bias_hh_l0{sfx}"] = _t(g["bh"])
+
+
 def chord_encoder_state_from_jax(params: Mapping) -> StateDict:
     """JAX ``ChordEncoder`` params -> the port's ``ChordEncoder`` state dict."""
     out: StateDict = {}
-    for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
-        g = params["gru"][direction]
-        out[f"gru.weight_ih_l0{sfx}"] = _t(np.asarray(g["wi"]).T)
-        out[f"gru.weight_hh_l0{sfx}"] = _t(np.asarray(g["wh"]).T)
-        out[f"gru.bias_ih_l0{sfx}"] = _t(g["bi"])
-        out[f"gru.bias_hh_l0{sfx}"] = _t(g["bh"])
+    _bigru(out, "gru", params["gru"])
     _linear(out, "linear_mu", params["linear_mu"])
     _linear(out, "linear_var", params["linear_var"])
+    return out
+
+
+def texture_encoder_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``TextureEncoder`` params -> the port's ``TextureEncoder`` state
+    dict (the reference names: the conv is ``cnn.0``)."""
+    out: StateDict = {}
+    _conv(out, "cnn.0", params["cnn"])
+    for name in ("fc1", "fc2", "linear_mu", "linear_var"):
+        _linear(out, name, params[name])
+    _bigru(out, "gru", params["gru"])
+    return out
+
+
+def pianotree_encoder_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``PianoTreeEncoder`` params -> the port's ``PianoTreeEncoder``
+    state dict (the reference names: ``enc_notes_gru``, ``enc_time_gru``)."""
+    out: StateDict = {}
+    for name in ("note_embedding", "linear_mu", "linear_std"):
+        _linear(out, name, params[name])
+    _bigru(out, "enc_notes_gru", params["notes_gru"])
+    _bigru(out, "enc_time_gru", params["time_gru"])
     return out
 
 

@@ -7,10 +7,12 @@
 
 The sampler is DDPM (all of the schedule's steps, RePaint inpainting) unless
 ``--ddim`` or ``--dpmpp`` asks for a tau-grid one. ``predict`` keeps the JAX
-package's layouts and argument order: conditions (B, 1, d_cond), images
-(B, 2, H, W) in and out, optional starting ``noise`` NHWC (B, H, W, C); with
-``autoreg`` and a pieces axis, conditions (P, B, 1, d_cond) and output
-(P, 2B, C, H/2, W). Runs on the GPU unless ``--device cpu`` is given.
+package's layouts and argument order: conditions (B, N, d_cond) (N = 1, or the
+128 prmat rows of ``sdf_txtvnl``), images (B, 2, H, W) in and out, optional
+starting ``noise`` NHWC (B, H, W, C); with ``autoreg`` and a pieces axis,
+conditions (P, B, N, d_cond) and output (P, 2B, C, H/2, W). The CFG
+unconditional condition is -1s of the condition's own shape. Runs on the GPU
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -218,7 +220,7 @@ class InferenceSession:
         if autoreg:
             if cond_mid is None:
                 raise ValueError("autoreg needs the mid-window conditions")
-            if np.ndim(cond) == 4:  # (P, B, 1, d): piece-batched
+            if np.ndim(cond) == 4:  # (P, B, N, d): piece-batched
                 return self._predict_autoreg(cond, cond_mid, uncond_scale, orig, mask, noise)
             out = self._predict_autoreg(
                 self._tensor(cond)[None],
@@ -233,7 +235,7 @@ class InferenceSession:
         cond = self._tensor(cond)
         b = cond.shape[0]
         h, w, c = self.cfg.img_h, self.cfg.img_w, self.cfg.out_channels
-        uncond_cond = -torch.ones((b, 1, self.cfg.d_cond), device=self.device)
+        uncond_cond = -torch.ones_like(cond)
         if orig is None or mask is None:
             orig = np.zeros((b, c, h, w), np.float32)
             mask = np.zeros_like(orig)
@@ -250,7 +252,7 @@ class InferenceSession:
                          noise=None) -> np.ndarray:
         """Piece-batched sliding-window generation.
 
-        ``conds``: (P, B, 1, d_cond); ``cond_mids``: (P, B-1, 1, d_cond);
+        ``conds``: (P, B, N, d_cond); ``cond_mids``: (P, B-1, N, d_cond);
         ``origs`` / ``masks``: optional (P, B, C, H, W); ``noise``: optional
         (P, B, H, W, C). The windows of a piece are sequential (each forces
         its first half to the previous window's output); the P pieces ride
@@ -271,7 +273,7 @@ class InferenceSession:
         # mid windows: time axis 2, segment axis 1 (piece-major)
         orig_mid, mask_mid, noise_mid = (get_autoreg_data(v, axis=2, seg_axis=1)
                                          for v in (orig, mask, noise))
-        uncond = -torch.ones((p, 1, self.cfg.d_cond), device=self.device)
+        uncond = -torch.ones_like(conds[:, 0])
 
         gen = []  # (P, half, W, C) tensors on the device
         prev_half = None
@@ -356,17 +358,22 @@ class InferenceSession:
 
 def song_conditions(task: SDFTask, song_data, length: int = 0, autoreg: bool = False):
     """Whole-song (prmat2c, pnotree, chord, prmat) -> (cond, cond_mid,
-    prmat2c), the conditions as NumPy (N, 1, d) without CFG dropout; cond_mid
-    (the mid windows' conditions) only with ``autoreg``."""
+    prmat2c), the conditions as NumPy (N, n_cond, d) without CFG dropout;
+    cond_mid (the mid windows' conditions, from the 4-bar-shifted chord,
+    pnotree and prmat) only with ``autoreg`` (JAX ``song_conditions``
+    :657-690)."""
     prmat2c, pnotree, chord, prmat = song_data
     if length and length > 0:
         prmat2c, pnotree, chord, prmat = (v[:length] for v in (prmat2c, pnotree, chord, prmat))
 
-    def encode(chd):
-        return task.encode_cond((None, None, torch.as_tensor(chd), None)).cpu().numpy()
+    def encode(pt, chd, pr):
+        batch = (None, torch.as_tensor(pt), torch.as_tensor(chd), torch.as_tensor(pr))
+        return task.encode_cond(batch).cpu().numpy()
 
-    cond = encode(chord)
-    cond_mid = encode(get_autoreg_data(chord, axis=1)) if autoreg else None
+    cond = encode(pnotree, chord, prmat)
+    cond_mid = None
+    if autoreg:
+        cond_mid = encode(*(get_autoreg_data(v, axis=1) for v in (pnotree, chord, prmat)))
     return cond, cond_mid, np.asarray(prmat2c)
 
 
@@ -379,8 +386,8 @@ def build_task_for_inference(cfg: Params, pretrained_dir: Optional[str] = None,
         raise NotImplementedError(
             "model_name ddpm (the plain DDPM family) is not ported yet (ROADMAP.md item 10)"
         )
-    encoders = build_frozen_encoders(cfg, pretrained_dir)
-    return SDFTask(cfg, encoders.get("chord_enc"), device=device, gn_conv=gn_conv)
+    return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained_dir), device=device,
+                   gn_conv=gn_conv)
 
 
 # -- CLI ------------------------------------------------------------------------------

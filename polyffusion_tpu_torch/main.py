@@ -1,7 +1,7 @@
 """Training CLI (counterpart of ``polyffusion_tpu/main.py``, sdf presets, one GPU):
 
     python -m polyffusion_tpu_torch.main --model sdf_chd8bar --output_dir result/x \\
-        --data_dir <npz dir> --pretrained_dir <dir with chd8bar.pt>
+        --data_dir <npz dir> --pretrained_dir <dir with chd8bar.pt, polydis.pt, pnotree.pt>
 
 Model presets come from ``polyffusion_tpu_torch/params/*.yaml``; the run
 directory gets a ``params.yaml`` copy, ``torch.save`` checkpoints under
@@ -33,8 +33,7 @@ def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 
     "fused" (the int8 route has no gradient)."""
     if not cfg["model_name"].startswith("sdf"):
         raise NotImplementedError(f"{cfg['model_name']}: the port trains sdf presets only")
-    encoders = build_frozen_encoders(cfg, pretrained_dir)
-    return SDFTask(cfg, encoders.get("chord_enc"), device=device,
+    return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained_dir), device=device,
                    generator=torch.Generator().manual_seed(seed), training=True, gn_conv=gn_conv)
 
 
@@ -46,7 +45,8 @@ def main(argv=None):
     p.add_argument("--split_file", default=None, help="pickled (train, val) split")
     p.add_argument("--pop909_use_track", default="0,1,2", help="tracks for prmat2c")
     p.add_argument("--pretrained_dir", default=None,
-                   help="frozen encoder checkpoints (chd8bar.pt or chd8bar.npz)")
+                   help="frozen encoder checkpoints: chd8bar, polydis (texture) or pnotree, "
+                   "each .pt or .npz")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None, help="override preset batch size")
     p.add_argument("--log_every", type=int, default=100)

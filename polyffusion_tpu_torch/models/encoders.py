@@ -1,16 +1,22 @@
-"""Conditioning encoders (counterpart of ``polyffusion_tpu/models/encoders.py``;
-only ``ChordEncoder`` and its loader so far)."""
+"""Frozen conditioning encoders (counterpart of
+``polyffusion_tpu/models/encoders.py``): the chord, texture and PianoTree VAE
+encoders and the loader of their pretrained weights. Parameter names are the
+reference modules', so the reference checkpoints load strictly."""
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..convert import chord_encoder_state_from_jax
+from ..convert import (
+    chord_encoder_state_from_jax,
+    pianotree_encoder_state_from_jax,
+    texture_encoder_state_from_jax,
+)
 from .gru import BiGRU
 
 
@@ -29,54 +35,173 @@ class ChordEncoder(nn.Module):
         return self.linear_mu(final), torch.exp(self.linear_var(final))
 
 
-def _chord_encoder_state(pretrained_dir: str) -> Dict[str, torch.Tensor]:
-    """The chord encoder's state dict from ``<pretrained_dir>/chd8bar.npz`` (a
-    JAX parameter tree flattened to "a/b/c" keys, as the JAX package's
-    converter writes it for ``--kind chd8bar``) or
-    ``chd8bar.pt`` (a reference chord-VAE checkpoint: a state dict, or one
-    under ``model`` / ``state_dict``, with the encoder under ``chord_enc.``)."""
-    npz_path = os.path.join(pretrained_dir, "chd8bar.npz")
-    if os.path.exists(npz_path):
-        tree: Dict = {}
-        with np.load(npz_path) as f:
-            for key in f.files:
-                *path, leaf = key.split("/")
-                node = tree
-                for part in path:
-                    node = node.setdefault(part, {})
-                node[leaf] = f[key]
-        return chord_encoder_state_from_jax(tree.get("chord_enc", tree))
-    pt_path = os.path.join(pretrained_dir, "chd8bar.pt")
-    if not os.path.exists(pt_path):
-        raise FileNotFoundError(
-            f"pretrained chord encoder not found: {npz_path} or {pt_path} (the "
-            "reference's chd8bar checkpoint, or its conversion by the JAX package)"
+class TextureEncoder(nn.Module):
+    """CNN + bi-GRU texture VAE encoder over a 2-bar prmat (B, 32, 128) ->
+    N(mu, sigma) (JAX ``TextureEncoder`` :155-189, reference
+    ``dl_modules/txt_enc.py``). Returns (mean, std).
+
+    The conv output is already NCHW (B, C, 8, 29); the reference views it as
+    (B, 8, C * 29), which mixes channels into time, and so does this."""
+
+    def __init__(self, emb_size: int = 256, hidden_dim: int = 1024, z_dim: int = 256,
+                 num_channel: int = 10):
+        super().__init__()
+        self.cnn = nn.Sequential(
+            nn.Conv2d(1, num_channel, kernel_size=(4, 12), stride=(4, 1)),
+            nn.ReLU(),
+            nn.MaxPool2d(kernel_size=(1, 4), stride=(1, 4)),
         )
-    obj = torch.load(pt_path, map_location="cpu", weights_only=True)
+        self.fc1 = nn.Linear(num_channel * 29, 1000)
+        self.fc2 = nn.Linear(1000, emb_size)
+        self.gru = BiGRU(emb_size, hidden_dim)
+        self.linear_mu = nn.Linear(hidden_dim * 2, z_dim)
+        self.linear_var = nn.Linear(hidden_dim * 2, z_dim)
+
+    def forward(self, pr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        b = pr.shape[0]
+        x = self.cnn(pr[:, None]).reshape(b, 8, -1)  # (B, C, 8, 29) -> (B, 8, C * 29)
+        _, final = self.gru(self.fc2(self.fc1(x)))
+        return self.linear_mu(final), torch.exp(self.linear_var(final))
+
+
+class PianoTreeEncoder(nn.Module):
+    """Note-GRU then time-GRU VAE encoder over a 2-bar pnotree (B, 32, 20, 6)
+    -> N(mu, sigma) (JAX ``PianoTreeEncoder`` :192-243, reference
+    ``dl_modules/pianotree_enc.py``). Returns (mean, std).
+
+    A step's notes are (pitch, 5 duration bits); its length is 20 minus its
+    pad-pitch (130) slots, and the notes GRU stops there. The pitch one-hot
+    spans 131 buckets with the pad bucket dropped, as in the reference."""
+
+    max_simu_note = 20
+    pitch_pad = 130
+    pitch_range = 130  # pitches 0-127, sos, eos
+    num_step = 32
+
+    def __init__(self, note_emb_size: int = 128, enc_notes_hid_size: int = 256,
+                 enc_time_hid_size: int = 512, z_size: int = 512, dur_width: int = 5):
+        super().__init__()
+        self.note_embedding = nn.Linear(self.pitch_range + dur_width, note_emb_size)
+        self.enc_notes_gru = BiGRU(note_emb_size, enc_notes_hid_size)
+        self.enc_time_gru = BiGRU(2 * enc_notes_hid_size, enc_time_hid_size)
+        self.linear_mu = nn.Linear(2 * enc_time_hid_size, z_size)
+        self.linear_std = nn.Linear(2 * enc_time_hid_size, z_size)
+
+    def forward(self, pnotree: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        b = pnotree.shape[0]
+        pitch = pnotree[..., 0]
+        lengths = self.max_simu_note - (pitch == self.pitch_pad).sum(dim=-1)
+        # a comparison, not F.one_hot: the same zeros as jax.nn.one_hot for an
+        # out-of-range value, and no range check that waits for the card
+        buckets = torch.arange(self.pitch_range, device=pnotree.device)
+        pitch_oh = (pitch[..., None] == buckets).float()
+        x = torch.cat([pitch_oh, pnotree[..., 1:].float()], dim=-1)  # (B, 32, 20, 135)
+        notes = self.note_embedding(x).reshape(b * self.num_step, self.max_simu_note, -1)
+        _, notes_final = self.enc_notes_gru(notes, lengths.reshape(-1))
+        _, time_final = self.enc_time_gru(notes_final.reshape(b, self.num_step, -1))
+        return self.linear_mu(time_final), torch.exp(self.linear_std(time_final))
+
+
+# -- pretrained weights ------------------------------------------------------------
+
+
+def _load_npz_tree(path: str) -> Dict:
+    """A JAX parameter tree written flat with "a/b/c" keys (the JAX package's
+    converter), as nested dicts of NumPy arrays."""
+    tree: Dict = {}
+    with np.load(path) as f:
+        for key in f.files:
+            *parts, leaf = key.split("/")
+            node = tree
+            for part in parts:
+                node = node.setdefault(part, {})
+            node[leaf] = f[key]
+    return tree
+
+
+def _load_pt_state(path: str) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint's state dict: a bare one, or one under ``model``
+    / ``state_dict``, with DataParallel's ``module.`` stripped."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("model", "state_dict"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in obj.items()}
-    enc = {k[len("chord_enc."):]: v for k, v in sd.items() if k.startswith("chord_enc.")}
-    return enc or sd
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in obj.items()}
+
+
+def _under(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """The keys under ``prefix.``, stripped, or ``sd`` when there are none."""
+    hit = {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+    return hit or sd
+
+
+def _encoder_state(pretrained_dir: Optional[str], base: str,
+                   from_tree: Callable[[Dict], Dict[str, torch.Tensor]],
+                   from_pt: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]):
+    """An encoder's state dict from ``<pretrained_dir>/<base>.npz`` (the JAX
+    package's conversion) or ``<base>.pt`` (the reference's checkpoint)."""
+    if not pretrained_dir:
+        raise FileNotFoundError(
+            f"this config needs the pretrained '{base}' encoder: pass --pretrained_dir "
+            f"with {base}.pt or {base}.npz"
+        )
+    npz_path = os.path.join(pretrained_dir, f"{base}.npz")
+    if os.path.exists(npz_path):
+        return from_tree(_load_npz_tree(npz_path))
+    pt_path = os.path.join(pretrained_dir, f"{base}.pt")
+    if not os.path.exists(pt_path):
+        raise FileNotFoundError(
+            f"pretrained checkpoint not found: {npz_path} or {pt_path} (the reference's "
+            "pretrained/ checkpoint, or its conversion by the JAX package)"
+        )
+    return from_pt(_load_pt_state(pt_path))
+
+
+def _pianotree_encoder_keys(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The encoder's part of a whole PianoTree VAE state dict."""
+    names = ("note_embedding.", "enc_notes_gru.", "enc_time_gru.", "linear_mu.", "linear_std.")
+    return {k: v for k, v in sd.items() if k.startswith(names)}
 
 
 def build_frozen_encoders(cfg, pretrained_dir: Optional[str] = None) -> Dict[str, nn.Module]:
     """The frozen encoders ``cfg`` needs (``cond_type``/``use_enc``), weights
-    loaded from ``pretrained_dir``: ``{"chord_enc": ChordEncoder}`` for a chord
-    condition with ``use_enc``, else ``{}``. JAX run directories of a
-    ``chd_8bar`` training are not read yet."""
+    loaded strictly from ``pretrained_dir`` (JAX ``build_frozen_encoders``
+    :285-370):
+
+    - ``chord_enc`` for a chord condition with ``use_enc``, from ``chd8bar.npz``
+      (the tree, or its ``chord_enc`` subtree) or ``chd8bar.pt`` (the
+      reference chord VAE, encoder under ``chord_enc.``);
+    - ``txt_enc`` for a texture condition with ``use_enc``, from
+      ``polydis.npz`` (the tree, or its ``rhy_encoder`` subtree) or
+      ``polydis.pt`` (the reference PolyDis, encoder under ``rhy_encoder.``);
+    - ``pnotree_enc`` for ``cond_type: pnotree``, from ``pnotree.npz`` or
+      ``pnotree.pt`` (the reference PianoTree VAE).
+
+    JAX run directories of a ``chd_8bar`` or ``pnotree_vae`` training are not
+    read yet (``ROADMAP.md`` item 15)."""
     cond_type = cfg.get("cond_type", "chord")
-    if cond_type != "chord":
-        raise NotImplementedError(f"cond_type {cond_type!r}: the port has chord only")
-    if not cfg.get("use_enc", False):
-        return {}
-    if not pretrained_dir:
-        raise FileNotFoundError(
-            "this config needs the pretrained chord encoder: pass --pretrained_dir "
-            "with chd8bar.pt or chd8bar.npz"
-        )
-    enc = ChordEncoder(cfg.get("chd_input_dim", 36), cfg.get("chd_hidden_dim", 512),
-                       cfg.get("chd_z_dim", 512))
-    enc.load_state_dict(_chord_encoder_state(pretrained_dir), strict=True)
-    return {"chord_enc": enc}
+    use_enc = bool(cfg.get("use_enc", cond_type == "pnotree"))
+    encoders: Dict[str, nn.Module] = {}
+    if "chord" in cond_type and use_enc:
+        enc = ChordEncoder(cfg.get("chd_input_dim", 36), cfg.get("chd_hidden_dim", 512),
+                           cfg.get("chd_z_dim", 512))
+        enc.load_state_dict(_encoder_state(
+            pretrained_dir, "chd8bar",
+            lambda tree: chord_encoder_state_from_jax(tree.get("chord_enc", tree)),
+            lambda sd: _under(sd, "chord_enc")), strict=True)
+        encoders["chord_enc"] = enc
+    if "txt" in cond_type and use_enc:
+        enc = TextureEncoder(cfg.get("txt_emb_size", 256), cfg.get("txt_hidden_dim", 1024),
+                             cfg.get("txt_z_dim", 256), cfg.get("txt_num_channel", 10))
+        enc.load_state_dict(_encoder_state(
+            pretrained_dir, "polydis",
+            lambda tree: texture_encoder_state_from_jax(tree.get("rhy_encoder", tree)),
+            lambda sd: _under(sd, "rhy_encoder")), strict=True)
+        encoders["txt_enc"] = enc
+    if cond_type == "pnotree":
+        enc = PianoTreeEncoder()
+        enc.load_state_dict(_encoder_state(
+            pretrained_dir, "pnotree", pianotree_encoder_state_from_jax,
+            _pianotree_encoder_keys), strict=True)
+        encoders["pnotree_enc"] = enc
+    return encoders

@@ -32,6 +32,20 @@
 // Both round the probabilities to v's dtype before the P V product, as the TPU
 // kernel does (fused_attention.py:73-75); the row sum that divides O at the end
 // is the fp32 sum of the unrounded values.
+//
+// The same bodies are the head-major attention forward (head_major_attention_fwd
+// below), which replaces the TPU kernel fused_attention.py:_attn_kernel: its
+// (BH, T, D) layout is the packed one with one head (row stride D, BH in place
+// of B). That kernel takes any T >= 1, so the bodies have a compile-time tail
+// switch (kTail): the last query and key tiles may be ragged, rows at or past T
+// are copied as zeros and never stored, and keys at or past T score -inf before
+// the running maximum. Every key tile the loop visits holds at least one key
+// below T, so a row's maximum is finite after its first tile; the exponent's
+// offset is still taken as 0 while the maximum is -inf, so that no tile can
+// give exp(-inf - (-inf)). Without the switch (kernel 1, and the head-major
+// kernel at T % 64 == 0) the code is the packed kernel's as it was. At the
+// (512, 1024 / 256, 64) bf16 shapes of a batch-128 self-attention in
+// head-major form, the bound is that of the packed kernel at the same work.
 
 #include <math.h>
 
@@ -41,6 +55,50 @@ namespace {
 
 constexpr int kBlockQ = kTile;  // queries per block
 constexpr int kBlockK = kTile;  // keys per streamed tile
+
+// copy_tile_bf16 / copy_tile_f32 of rows [0, rows) of a 64-row tile; with
+// kTail the rows at or past ``rows`` are written as zeros and never read.
+template <int D, int kThreads, bool kTail>
+__device__ __forceinline__ void copy_rows_bf16(const bf16* __restrict__ src, long row_stride,
+                                               bf16* dst, int ld, int rows) {
+  if constexpr (!kTail) {
+    copy_tile_bf16<D, kThreads>(src, row_stride, dst, ld);
+  } else {
+    constexpr int kChunks = kTile * D / 8;
+    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
+      const int r = c / (D / 8);
+      const int d = (c % (D / 8)) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows) val = *reinterpret_cast<const uint4*>(src + r * row_stride + d);
+      *reinterpret_cast<uint4*>(dst + r * ld + d) = val;
+    }
+  }
+}
+
+template <int D, int kThreads, bool kTail>
+__device__ __forceinline__ void copy_rows_f32(const float* __restrict__ src, long row_stride,
+                                              float* dst, int ld, int rows) {
+  if constexpr (!kTail) {
+    copy_tile_f32<D, kThreads>(src, row_stride, dst, ld);
+  } else {
+    constexpr int kChunks = kTile * D / 4;
+    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
+      const int r = c / (D / 4);
+      const int d = (c % (D / 4)) * 4;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < rows) load4(src + r * row_stride + d, v);
+      store4(dst + r * ld + d, v);
+    }
+  }
+}
+
+// The offset of a row's exponentials: its running maximum, or 0 while that is
+// -inf (only reachable with kTail, where a row may have seen no key yet).
+template <bool kTail>
+__device__ __forceinline__ float exp_offset(float m) {
+  if constexpr (kTail) return m == -INFINITY ? 0.f : m;
+  return m;
+}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync)
@@ -52,7 +110,7 @@ constexpr int kThreadsTc = 32 * kWarpsTc;
 //   A (16x16): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
 //   B (16x8):  b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
 //   C (16x8):  c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
-template <int D>
+template <int D, bool kTail>
 __global__ void __launch_bounds__(kThreadsTc)
 packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -75,7 +133,8 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
                          static_cast<long>(blockIdx.y) * D;
   const int q0 = blockIdx.x * kBlockQ;
 
-  copy_tile_bf16<D, kThreadsTc>(q + head_base + q0 * row_stride, row_stride, qs, kLd);
+  copy_rows_bf16<D, kThreadsTc, kTail>(q + head_base + q0 * row_stride, row_stride, qs, kLd,
+                                       seq - q0);
   __syncthreads();
   uint32_t qa[kKs][4];  // this warp's 16 query rows as A fragments, kept for the whole loop
 #pragma unroll
@@ -94,8 +153,10 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   float l[2] = {0.f, 0.f};
 
   for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-    copy_tile_bf16<D, kThreadsTc>(k + head_base + k0 * row_stride, row_stride, ks, kLd);
-    copy_tile_bf16<D, kThreadsTc>(v + head_base + k0 * row_stride, row_stride, vs, kLd);
+    copy_rows_bf16<D, kThreadsTc, kTail>(k + head_base + k0 * row_stride, row_stride, ks, kLd,
+                                         seq - k0);
+    copy_rows_bf16<D, kThreadsTc, kTail>(v + head_base + k0 * row_stride, row_stride, vs, kLd,
+                                         seq - k0);
     __syncthreads();
 
     // S = Q K^T: B[d][key] = K[key][d], so b0/b1 are adjacent pairs of a K row
@@ -118,17 +179,23 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
       for (int n = 0; n < kNk; ++n) {
         s[n][2 * r] *= scale;
         s[n][2 * r + 1] *= scale;
+        if constexpr (kTail) {  // keys n*8 + 2t and n*8 + 2t + 1 of this tile
+          const int key = k0 + n * 8 + 2 * t;
+          if (key >= seq) s[n][2 * r] = -INFINITY;
+          if (key + 1 >= seq) s[n][2 * r + 1] = -INFINITY;
+        }
         mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[r], mx);
-      const float alpha = expf(m[r] - m_new);
+      const float off = exp_offset<kTail>(m_new);
+      const float alpha = expf(m[r] - off);
       float rs = 0.f;
 #pragma unroll
       for (int n = 0; n < kNk; ++n) {
-        s[n][2 * r] = expf(s[n][2 * r] - m_new);
-        s[n][2 * r + 1] = expf(s[n][2 * r + 1] - m_new);
+        s[n][2 * r] = expf(s[n][2 * r] - off);
+        s[n][2 * r + 1] = expf(s[n][2 * r + 1] - off);
         rs += s[n][2 * r] + s[n][2 * r + 1];
       }
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
@@ -164,8 +231,10 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (kTail && row >= seq) continue;
     const float inv = 1.f / l[r];
-    bf16* dst = out + head_base + (q0 + warp * 16 + g + 8 * r) * row_stride + 2 * t;
+    bf16* dst = out + head_base + row * row_stride + 2 * t;
 #pragma unroll
     for (int n = 0; n < kNd; ++n)
       *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
@@ -178,7 +247,7 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 constexpr int kThreads32 = 256;  // 16 x 16 threads
 constexpr int kLdP = kBlockK + 4;
 
-template <int D>
+template <int D, bool kTail>
 __global__ void __launch_bounds__(kThreads32)
 packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, float* __restrict__ out,
@@ -198,7 +267,8 @@ packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restric
                          static_cast<long>(blockIdx.y) * D;
   const int q0 = blockIdx.x * kBlockQ;
 
-  copy_tile_f32<D, kThreads32>(q + head_base + q0 * row_stride, row_stride, qs, kLd);
+  copy_rows_f32<D, kThreads32, kTail>(q + head_base + q0 * row_stride, row_stride, qs, kLd,
+                                      seq - q0);
 
   float m[4], l[4], o[4][4 * kOc];
 #pragma unroll
@@ -210,8 +280,10 @@ packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restric
   }
 
   for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-    copy_tile_f32<D, kThreads32>(k + head_base + k0 * row_stride, row_stride, ks, kLd);
-    copy_tile_f32<D, kThreads32>(v + head_base + k0 * row_stride, row_stride, vs, kLd);
+    copy_rows_f32<D, kThreads32, kTail>(k + head_base + k0 * row_stride, row_stride, ks, kLd,
+                                        seq - k0);
+    copy_rows_f32<D, kThreads32, kTail>(v + head_base + k0 * row_stride, row_stride, vs, kLd,
+                                        seq - k0);
     __syncthreads();
 
     // S tile: rows ty*4+i, key columns tx+16*j
@@ -242,23 +314,25 @@ packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restric
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[i][j] *= scale;
+        if (kTail && k0 + tx + 16 * j >= seq) s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int sh = 8; sh > 0; sh >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
       const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      const float e_off = exp_offset<kTail>(m_new);
+      const float alpha = expf(m[i] - e_off);
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = expf(s[i][j] - e_off);
         rs += p;
         ps[(ty * 4 + i) * kLdP + tx + 16 * j] = p;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      for (int sh = 8; sh > 0; sh >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, sh);
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
 #pragma unroll
@@ -291,8 +365,10 @@ packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restric
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (kTail && row >= seq) continue;
     const float inv = 1.f / l[i];
-    float* dst = out + head_base + (q0 + ty * 4 + i) * row_stride;
+    float* dst = out + head_base + row * row_stride;
 #pragma unroll
     for (int g = 0; g < kOc; ++g) {
       float r[4];
@@ -311,29 +387,43 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, std::atomic<uint64_t
                    int n_heads, float scale, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(seq / kBlockQ, n_heads, batch);
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, n_heads, batch);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), seq, n_heads, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kTail>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int batch,
                         int seq, int n_heads, float scale, cudaStream_t stream) {
   constexpr size_t kSmem = sizeof(bf16) * 3 * kBlockQ * (D + 8);
   static std::atomic<uint64_t> smem_set{0};
-  return launch<bf16>(packed_attention_bf16_kernel<D>, kThreadsTc, kSmem, smem_set, q, k, v, out,
-                      batch, seq, n_heads, scale, stream);
+  return launch<bf16>(packed_attention_bf16_kernel<D, kTail>, kThreadsTc, kSmem, smem_set, q, k,
+                      v, out, batch, seq, n_heads, scale, stream);
 }
 
-template <int D>
+template <int D, bool kTail>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, int batch,
                         int seq, int n_heads, float scale, cudaStream_t stream) {
   constexpr size_t kSmem = sizeof(float) * (3 * kBlockQ * (D + 4) + kBlockQ * kLdP);
   static std::atomic<uint64_t> smem_set{0};
-  return launch<float>(packed_attention_fp32_kernel<D>, kThreads32, kSmem, smem_set, q, k, v, out,
-                       batch, seq, n_heads, scale, stream);
+  return launch<float>(packed_attention_fp32_kernel<D, kTail>, kThreads32, kSmem, smem_set, q, k,
+                       v, out, batch, seq, n_heads, scale, stream);
+}
+
+template <bool kTail>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int batch, int seq,
+                     int n_heads, int head_dim, int dtype, float scale, cudaStream_t s) {
+  if (dtype == 0 && head_dim == 64)
+    return launch_fp32<64, kTail>(q, k, v, out, batch, seq, n_heads, scale, s);
+  if (dtype == 0 && head_dim == 128)
+    return launch_fp32<128, kTail>(q, k, v, out, batch, seq, n_heads, scale, s);
+  if (dtype == 1 && head_dim == 64)
+    return launch_bf16<64, kTail>(q, k, v, out, batch, seq, n_heads, scale, s);
+  if (dtype == 1 && head_dim == 128)
+    return launch_bf16<128, kTail>(q, k, v, out, batch, seq, n_heads, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -345,14 +435,20 @@ extern "C" int packed_attention_fwd(const void* q, const void* k, const void* v,
   if (seq <= 0 || seq % kBlockQ != 0 || batch <= 0 || n_heads <= 0 || batch > 65535 ||
       n_heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch<false>(q, k, v, out, batch, seq, n_heads, head_dim, dtype,
+                                          scale, static_cast<cudaStream_t>(stream)));
+}
+
+// Head-major (BH, T, D) attention, any T >= 1 (kernel 3): the packed kernel with
+// one head; the tail switch is on only where T is not a multiple of the tile.
+extern "C" int head_major_attention_fwd(const void* q, const void* k, const void* v, void* out,
+                                        int bh, int seq, int head_dim, int dtype, float scale,
+                                        void* stream) {
+  if (seq <= 0 || bh <= 0 || bh > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return static_cast<int>(launch_fp32<64>(q, k, v, out, batch, seq, n_heads, scale, s));
-  if (dtype == 0 && head_dim == 128)
-    return static_cast<int>(launch_fp32<128>(q, k, v, out, batch, seq, n_heads, scale, s));
-  if (dtype == 1 && head_dim == 64)
-    return static_cast<int>(launch_bf16<64>(q, k, v, out, batch, seq, n_heads, scale, s));
-  if (dtype == 1 && head_dim == 128)
-    return static_cast<int>(launch_bf16<128>(q, k, v, out, batch, seq, n_heads, scale, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      seq % kBlockQ == 0
+          ? dispatch<false>(q, k, v, out, bh, seq, 1, head_dim, dtype, scale, s)
+          : dispatch<true>(q, k, v, out, bh, seq, 1, head_dim, dtype, scale, s);
+  return static_cast<int>(err);
 }

@@ -1,13 +1,19 @@
-"""Packed whole-sequence self-attention: the CUDA kernels' wrappers, their plain
-PyTorch versions, and the autograd function that joins them.
+"""Whole-sequence self-attention: the CUDA kernels' wrappers, their plain
+PyTorch versions, and the autograd functions that join them.
 
-Counterpart of ``polyffusion_tpu/ops/fused_attention.py``: the forward kernel
+Counterpart of ``polyffusion_tpu/ops/fused_attention.py``. Packed (B, T, H*D),
+as the attention projections produce it: the forward kernel
 (``csrc/packed_attention.cu``) replaces ``_packed_kernel`` and its plain version
 is ``_einsum_reference_packed``; the backward kernel
 (``csrc/packed_attention_bwd.cu``) replaces ``_packed_bwd_kernel`` and its plain
 version is that kernel's arithmetic in torch; ``packed_self_attention`` is the
-custom VJP ``_fused_packed``. All take q, k, v as the attention projections
-produce them, packed (B, T, H*D), and return results in the same layout.
+custom VJP ``_fused_packed``. Head-major (BH, T, D): ``fused_self_attention``
+is the custom VJP ``_fused``, whose forward kernel (the packed kernel's bodies
+with one head and a ragged tail, ``head_major_attention_fwd`` in the same
+source) replaces ``_attn_kernel``, and whose backward differentiates the plain
+version ``head_major_attention_reference`` (``_einsum_reference``), as JAX's
+does. No model path calls the head-major op: the UNet's attention goes
+through ``ops/attention.py`` to the packed kernels, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -178,3 +184,100 @@ def packed_self_attention(
 
 
 packed_self_attention.launches = 0
+
+
+# -- head-major (BH, T, D) -------------------------------------------------------
+
+MAX_BH = 65535  # the kernel's grid puts BH on gridDim.z
+
+
+def head_major_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """The plain (BH, T, D) forward (JAX's ``_einsum_reference``): fp32
+    logits and softmax, P cast to v's dtype after its normalisation, fp32
+    accumulation of P V, output in q's dtype."""
+    s = torch.einsum("bid,bjd->bij", q.float(), k.float())
+    p = torch.softmax(s * scale, dim=-1)
+    return torch.einsum("bij,bjd->bid", p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _check_head_major(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one (BH, T, D) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bh, t, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if t < 1 or bh < 1:
+        raise ValueError(f"empty attention: BH {bh}, T {t}")
+    if bh > MAX_BH:
+        raise ValueError(f"BH {bh} exceeds {MAX_BH}, the kernel grid's bound")
+    if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"dtype must be float32 or bfloat16 for all of q, k, v, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must lie on one device")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"head-major attention runs on cuda or cpu, not {q.device}")
+    for name, x in zip("qkv", (q, k, v)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _head_major_forward(q, k, v, scale: float) -> torch.Tensor:
+    """The head-major kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return head_major_attention_reference(q, k, v, scale)
+    fn = _kernel("packed_attention", "head_major_attention_fwd",
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+    bh, t, d = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t, d,
+                 _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"head_major_attention_fwd launch failed: cudaError {err}")
+    fused_self_attention.launches += 1
+    return out
+
+
+class _HeadMajorAttention(torch.autograd.Function):
+    """The head-major kernel forward; the backward recomputes through the
+    plain version under autograd (JAX's ``_fused_bwd``: no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _head_major_forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = head_major_attention_reference(q, k, v, ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+        return dq, dk, dv, None
+
+
+def fused_self_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, *, block_bh: int = 0
+) -> torch.Tensor:
+    """(BH, T, D) x (BH, T, D) -> (BH, T, D) whole-sequence attention, any
+    T >= 1, D in {64, 128}, fp32 or bf16, BH <= 65535; differentiable.
+
+    On a CUDA tensor the forward launches the head-major kernel (and raises if
+    it cannot); on a CPU tensor it runs ``head_major_attention_reference``. The
+    backward differentiates that plain version on either device.
+
+    ``block_bh`` is JAX's (batch*head) pairs per TPU grid step: it shapes the
+    TPU's grid only and cannot change the result, so it is checked (a
+    non-negative int) and otherwise unused."""
+    if isinstance(block_bh, bool) or not isinstance(block_bh, int) or block_bh < 0:
+        raise ValueError(f"block_bh must be a non-negative int, got {block_bh!r}")
+    _check_head_major(q, k, v)
+    return _HeadMajorAttention.apply(q, k, v, scale)
+
+
+fused_self_attention.launches = 0

@@ -1,7 +1,8 @@
-"""The Polyffusion-SDF task, chord condition only (counterpart of
-``polyffusion_tpu/tasks/sdf.py``): the condition is the mean of a frozen chord
-VAE (or the raw one-hot), with classifier-free-guidance dropout to -1s, and the
-loss is the eps-MSE diffusion loss."""
+"""The Polyffusion-SDF task (counterpart of ``polyffusion_tpu/tasks/sdf.py``):
+the condition per ``cond_type`` (chord, txt, pnotree, chord+txt), each the mean
+of a frozen VAE encoder or the raw feature, with classifier-free-guidance
+dropout to -1s per ``cond_mode`` (cond, uncond, mix, mix2), and the eps-MSE
+diffusion loss. ``concat_blurry`` (``sdf_concat``) is not ported yet."""
 
 from __future__ import annotations
 
@@ -13,20 +14,33 @@ from ..data.loader import decompress_batch
 from ..device import DeviceLike, resolve_device
 from ..diffusion.gaussian import diffusion_loss, draw_t_noise
 from ..diffusion.schedule import NoiseSchedule, make_schedule
-from ..models.encoders import ChordEncoder
+from ..models.encoders import ChordEncoder, PianoTreeEncoder, TextureEncoder
 from ..models.unet import UNetModel, init_weights_
 from ..utils.precision import cast_sampling_params
 
 CFG_DROP = 0.2  # the reference's random.random() < 0.2, one coin per batch
+COND_TYPES = ("chord", "txt", "pnotree", "chord+txt")
+SEG_STEPS = 32  # the encoders' 2-bar segment, in 16th-note steps
 
 
 class StepNoise(NamedTuple):
     """The randomness of one loss evaluation: per-sample timesteps, the
-    noise, and the batch's CFG-dropout coin (a 0-d bool tensor)."""
+    noise, the batch's CFG-dropout coin and ``mix2``'s two coins that drop
+    the chord part and the texture part of a chord+txt condition (0-d bool
+    tensors; a coin left None drops nothing)."""
 
     t: torch.Tensor
     noise: torch.Tensor
     drop: torch.Tensor
+    drop_chd: Optional[torch.Tensor] = None
+    drop_txt: Optional[torch.Tensor] = None
+
+
+def _dropped(cond: torch.Tensor, coin: Optional[torch.Tensor]) -> torch.Tensor:
+    """-1s where ``coin`` (a 0-d bool tensor) is true, chosen on the device."""
+    if coin is None:
+        return cond
+    return torch.where(coin.to(cond.device), -torch.ones_like(cond), cond)
 
 
 class SDFTask:
@@ -34,6 +48,8 @@ class SDFTask:
         self,
         cfg,
         chord_enc: Optional[ChordEncoder] = None,
+        txt_enc: Optional[TextureEncoder] = None,
+        pnotree_enc: Optional[PianoTreeEncoder] = None,
         *,
         device: DeviceLike = None,
         generator: Optional[torch.Generator] = None,
@@ -41,9 +57,10 @@ class SDFTask:
         gn_conv: str = "unfused",
     ):
         """``generator``: a CPU generator from which the UNet's weights are
-        drawn; without it they keep torch's default init. ``chord_enc`` keeps
-        the weights it comes with (it is frozen: pretrained, or random made by
-        the caller).
+        drawn; without it they keep torch's default init. The encoders
+        (``chord_enc``, ``txt_enc``, ``pnotree_enc``, as ``cond_type`` and
+        ``use_enc`` need them) keep the weights they come with (they are
+        frozen: pretrained, or random made by the caller).
         Weights are made in fp32 and, for a ``bf16`` preset, cast for sampling
         (``utils/precision.py``) after any ``load_unet_state``, unless
         ``training``: then they stay fp32, the trainer's master weights.
@@ -54,12 +71,23 @@ class SDFTask:
         self.training = training
         self.cfg = cfg
         self.cond_type = cfg.get("cond_type", "chord")
-        if self.cond_type != "chord":
-            raise NotImplementedError(f"cond_type {self.cond_type!r}: the port has chord only")
+        if self.cond_type not in COND_TYPES:
+            raise NotImplementedError(f"cond_type {self.cond_type!r}")
+        if cfg.get("concat_blurry", False):
+            raise NotImplementedError(
+                "concat_blurry (sdf_concat) is not ported yet (ROADMAP.md item 8)")
         self.cond_mode = cfg.get("cond_mode", "cond")
-        self.use_enc = bool(cfg.get("use_enc", False))
-        if self.use_enc and chord_enc is None:
-            raise ValueError("use_enc needs a chord encoder")
+        self.use_enc = bool(cfg.get("use_enc", self.cond_type == "pnotree"))
+        needed = {
+            "chord_enc": "chord" in self.cond_type and self.use_enc,
+            "txt_enc": "txt" in self.cond_type and self.use_enc,
+            "pnotree_enc": self.cond_type == "pnotree",
+        }
+        given = {"chord_enc": chord_enc, "txt_enc": txt_enc, "pnotree_enc": pnotree_enc}
+        for name, need in needed.items():
+            if need and given[name] is None:
+                raise ValueError(f"cond_type {self.cond_type!r} with use_enc "
+                                 f"{self.use_enc} needs {name}")
         if training and gn_conv == "int8":
             raise ValueError("gn_conv='int8' is sampling-only (no gradient): train with "
                              "'unfused' or 'fused'")
@@ -75,7 +103,7 @@ class SDFTask:
             d_cond=cfg.d_cond,
             gn_conv=gn_conv,
         )
-        self.chord_enc = chord_enc
+        self.chord_enc, self.txt_enc, self.pnotree_enc = chord_enc, txt_enc, pnotree_enc
         if generator is not None:
             init_weights_(self.unet, generator)
         self.schedule = make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end)
@@ -90,8 +118,9 @@ class SDFTask:
             cast_sampling_params(self.unet)
         self.unet.to(self.device).train(self.training)
         self.unet.prepare_gn_conv()
-        if self.chord_enc is not None:
-            self.chord_enc.to(self.device).eval().requires_grad_(False)
+        for enc in (self.chord_enc, self.txt_enc, self.pnotree_enc):
+            if enc is not None:
+                enc.to(self.device).eval().requires_grad_(False)
 
     def load_unet_state(self, state_dict) -> None:
         """Strictly load fp32 UNet weights (e.g. from ``convert.unet_state_from_jax``)."""
@@ -111,26 +140,63 @@ class SDFTask:
             return mean[:, None, :]
         return chord.reshape(chord.shape[0], 1, -1)
 
+    @torch.no_grad()
+    def encode_txt(self, prmat: torch.Tensor) -> torch.Tensor:
+        """(B, 128, 128) prmat -> the texture means of its four 2-bar segments,
+        concatenated (B, 1, 4 z); or, without ``use_enc``, the prmat itself as
+        128 condition tokens (JAX ``encode_txt`` :99-110)."""
+        prmat = prmat.to(self.device, torch.float32)
+        if not self.use_enc:
+            return prmat
+        zs = [self.txt_enc(seg)[0] for seg in prmat.split(SEG_STEPS, dim=1)]
+        return torch.cat(zs, dim=-1)[:, None, :]
+
+    @torch.no_grad()
+    def encode_pnotree(self, pnotree: torch.Tensor) -> torch.Tensor:
+        """(B, 128, 20, 6) pnotree -> the PianoTree means of its four 2-bar
+        segments, concatenated (B, 1, 4 z) (JAX ``encode_pnotree`` :112-120)."""
+        pnotree = pnotree.to(self.device)
+        zs = [self.pnotree_enc(seg)[0] for seg in pnotree.split(SEG_STEPS, dim=1)]
+        return torch.cat(zs, dim=-1)[:, None, :]
+
     def encode_cond(
         self,
         batch,
         generator: Optional[torch.Generator] = None,
         drop: Optional[torch.Tensor] = None,
+        drop_chd: Optional[torch.Tensor] = None,
+        drop_txt: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Condition + CFG dropout per ``cond_mode``. ``batch`` is (prmat2c,
-        pnotree, chord, prmat). In the mix modes the condition becomes -1s where
-        ``drop`` (a 0-d bool tensor) is true, or, without ``drop``, with
-        probability 0.2 from ``generator``; with neither there is no dropout.
-        The choice is made on the device: it never waits for the card."""
-        cond = self.encode_chord(batch[2])
+        """Condition per ``cond_type``, then CFG dropout per ``cond_mode`` (JAX
+        ``encode_cond`` :122-156). ``batch`` is (prmat2c, pnotree, chord,
+        prmat). In the mix modes the condition becomes -1s where ``drop`` (a
+        0-d bool tensor) is true; ``mix2`` of chord+txt first drops the chord
+        part where ``drop_chd`` is and the texture part where ``drop_txt`` is.
+        A coin not given is drawn from ``generator`` (probability 0.2 each),
+        or, without it, drops nothing. The choice is made on the device: it
+        never waits for the card."""
+        mix = self.cond_mode in ("mix", "mix2")
+        parts = self.cond_type == "chord+txt" and self.cond_mode == "mix2"
+        if generator is not None and mix:
+            if parts:
+                drop_chd = self.draw_drop(generator) if drop_chd is None else drop_chd
+                drop_txt = self.draw_drop(generator) if drop_txt is None else drop_txt
+            drop = self.draw_drop(generator) if drop is None else drop
+        _, pnotree, chord, prmat = batch
+        if self.cond_type == "chord":
+            cond = self.encode_chord(chord)
+        elif self.cond_type == "txt":
+            cond = self.encode_txt(prmat)
+        elif self.cond_type == "pnotree":
+            cond = self.encode_pnotree(pnotree)
+        else:
+            zchd, ztxt = self.encode_chord(chord), self.encode_txt(prmat)
+            if parts:
+                zchd, ztxt = _dropped(zchd, drop_chd), _dropped(ztxt, drop_txt)
+            cond = torch.cat([zchd, ztxt], dim=-1)
         if self.cond_mode == "uncond":
             return -torch.ones_like(cond)
-        if self.cond_mode in ("mix", "mix2"):
-            if drop is None and generator is not None:
-                drop = self.draw_drop(generator)
-            if drop is not None:
-                return torch.where(drop.to(cond.device), -torch.ones_like(cond), cond)
-        return cond
+        return _dropped(cond, drop) if mix else cond
 
     @staticmethod
     def draw_drop(generator: torch.Generator) -> torch.Tensor:
@@ -142,19 +208,28 @@ class SDFTask:
     def used_batch_fields(self):
         """Batch fields the loss reads: the feeder sends placeholders for the
         rest (``data/loader.py:DeviceFeeder``)."""
-        return {"prmat2c", "chord"}
+        fields = {"prmat2c"}
+        if "chord" in self.cond_type:
+            fields.add("chord")
+        if "txt" in self.cond_type:
+            fields.add("prmat")
+        if self.cond_type == "pnotree":
+            fields.add("pnotree")
+        return fields
 
     def draw_noise(self, batch, generator: torch.Generator) -> StepNoise:
-        """The CFG coin, then t and the noise, from ``generator`` on the device."""
+        """The CFG coin, then t and the noise, then the two ``mix2`` coins,
+        from ``generator`` on the device."""
         drop = self.draw_drop(generator)
         t, noise = draw_t_noise(self.schedule.n_steps, tuple(batch[0].shape), generator)
-        return StepNoise(t, noise, drop)
+        return StepNoise(t, noise, drop, self.draw_drop(generator), self.draw_drop(generator))
 
     def loss_fn(self, batch, noise: StepNoise) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """eps-MSE loss of a (possibly compressed) batch for the given t, noise
         and coin; the UNet runs in the dtype of its weights."""
         batch = decompress_batch(batch)
-        cond = self.encode_cond(batch, drop=noise.drop)
+        cond = self.encode_cond(batch, drop=noise.drop, drop_chd=noise.drop_chd,
+                                drop_txt=noise.drop_txt)
         x0 = batch[0].to(self.device, torch.float32)
         loss = diffusion_loss(self.apply_eps, self._schedule_dev, x0, cond, noise.t, noise.noise)
         return loss, {"loss": loss}

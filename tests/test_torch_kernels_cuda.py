@@ -13,6 +13,8 @@ import torch
 
 from polyffusion_tpu_torch.ops.attention import multihead_attention
 from polyffusion_tpu_torch.ops.fused_attention import (
+    fused_self_attention,
+    head_major_attention_reference,
     packed_attention_bwd,
     packed_attention_bwd_reference,
     packed_attention_reference,
@@ -39,6 +41,7 @@ from polyffusion_tpu_torch.ops.repaint_epilogue import (
 )
 
 # the limits of chip_smoke.py (set there from the card's readings)
+ATTN_LIMITS = {torch.bfloat16: (2e-3, 2**-6), torch.float32: (1e-5, 0.0)}
 BWD_LIMITS = {torch.bfloat16: (2e-3, 2**-6), torch.float32: (1e-6, 0.0)}
 GN_LIMITS = {torch.bfloat16: (1e-4, 2**-6), torch.float32: (1e-6, 1e-6)}
 GN_PARAM_LIMIT = (1e-3, 1e-5)
@@ -90,6 +93,77 @@ def test_cuda_kernel_matches_plain(b, t, h, d, dtype, atol, rtol):
     # fp32: reassociation of the online softmax
     want = want.float()
     assert ((got.float() - want).abs() <= atol + rtol * want.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bh,t,d,dtype",
+    [
+        (8, 256, 64, torch.bfloat16),
+        (7, 256, 64, torch.float32),
+        (6, 128, 128, torch.bfloat16),
+        (4, 200, 64, torch.bfloat16),
+        (4, 200, 64, torch.float32),
+        (3, 1000, 128, torch.bfloat16),
+        (3, 1000, 128, torch.float32),
+        (2, 1, 64, torch.float32),
+        (2, 65, 128, torch.bfloat16),
+    ],
+)
+def test_cuda_head_major_matches_plain(bh, t, d, dtype):
+    """Kernel 3 at tile multiples and ragged lengths, down to T = 1: rows past
+    T are neither read nor written (the output's guard bytes stay as set)."""
+    g = _card()
+    q, k, v = (torch.randn(bh, t, d, device="cuda", generator=g).to(dtype) for _ in range(3))
+    before = fused_self_attention.launches
+    got = fused_self_attention(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert fused_self_attention.launches == before + 1
+    want = head_major_attention_reference(q, k, v, d**-0.5)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    assert _within(got, want, *ATTN_LIMITS[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_head_major_stays_in_bounds():
+    """A ragged (BH, T, D) slice of a larger buffer: the kernel writes no row
+    past T into the next head's rows, which hold a sentinel."""
+    g = _card()
+    bh, t, d = 3, 100, 64
+    buf = torch.full((bh + 1, t, d), 7.0, device="cuda", dtype=torch.bfloat16)
+    q, k, v = (torch.randn(bh, t, d, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    out = buf[:bh]
+    from polyffusion_tpu_torch.ops import fused_attention as fa
+
+    fn = fa._kernel("packed_attention", "head_major_attention_fwd",
+                    [fa.ctypes.c_void_p] * 4 + [fa.ctypes.c_int] * 4
+                    + [fa.ctypes.c_float, fa.ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t, d, 1,
+             d**-0.5, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((buf[bh] == 7.0).all())
+    assert _within(out, head_major_attention_reference(q, k, v, d**-0.5),
+                   *ATTN_LIMITS[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_head_major_gradient_matches_plain(dtype):
+    """The backward recomputes through the plain version on the card: it
+    agrees with the plain version's autograd on CPU copies."""
+    g = _card()
+    bh, t, d = 4, 200, 64
+    qkv = [torch.randn(bh, t, d, device="cuda", generator=g).to(dtype).requires_grad_()
+           for _ in range(3)]
+    co = torch.randn(bh, t, d, device="cuda", generator=g).to(dtype)
+    got = torch.autograd.grad(fused_self_attention(*qkv, d**-0.5), qkv, co)
+    cpu = [x.detach().cpu().requires_grad_() for x in qkv]
+    want = torch.autograd.grad(head_major_attention_reference(*cpu, d**-0.5), cpu, co.cpu())
+    for x, y in zip(got, want):
+        assert _within(x.cpu(), y, *BWD_LIMITS[dtype])
 
 
 @pytest.mark.cuda
