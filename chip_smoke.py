@@ -7,7 +7,11 @@ From the root of a checkout, with one CUDA card. It builds the port's CUDA
 kernels from the sources in the checkout (one ``nvcc`` per source, in
 parallel), holds every kernel against its plain PyTorch version on the card
 (with a planted fault that must fail each limit; kernels 3 and 4's gradients
-through their autograd functions too), holds the full-width fp32 UNet eval (with the
+through their autograd functions too; kernel 1's row log-sum-exp, the
+forward's second output, against its plain version; kernel 2 given that lse,
+as the train step gives it), logs the host microseconds per launch of
+kernels 1-3 (``profile_attention``) and the tensor-map cache's hits and
+misses on each main path, holds the full-width fp32 UNet eval (with the
 GroupNorm-SiLU-conv sites unfused and fused), one full-width fp32 train step
 and a full-width fp32 DDPM RePaint run on the card against the CPU, and the
 full-width bf16 UNet's int8 eps against its fused eps, then drives the main paths through the user's entry points, each with the
@@ -39,9 +43,11 @@ kernels' launch counts set to 0 just before it and read just after:
 Every phase raises on failure and the script then exits non-zero without a
 result. It imports nothing of JAX or of the JAX package.
 
-Output: progress lines; the card's name and power limit; a ``{"kernels": [...]}``
+Output: progress lines (``nvcc -Xptxas -v``'s registers and spills of every
+kernel among them); the card's name and power limit; a ``{"kernels": [...]}``
 JSON line (per kernel: launches on the main paths, max error, kernel, plain,
-library and bound times); and last ``{"ok": true, "device": {...}}``.
+library and bound times; for kernels 1-3 the host microseconds per launch);
+and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -67,6 +73,10 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # after it) moves the fp32 value by about 1e-4.
 BF16_ATOL, BF16_RTOL = 2e-3, 2**-6
 FP32_ATOL, FP32_RTOL = 1e-5, 0.0  # reassociation of the online softmax
+# The bf16 forward's row log-sum-exp (fp32) against the plain one: the order of
+# the fp32 sums and exp2 of a scaled difference against exp; the planted fault
+# is the plain lse without the last key tile.
+LSE_ATOL, LSE_RTOL = 1e-5, 0.0
 UNET_ATOL, UNET_RTOL = 2e-4, 1e-4  # the UNet tolerance of tests/test_unet_parity.py:68
 # Attention backward against its plain version, elementwise on dq, dk, dv.
 # bf16: both round Pc and dS to bf16 before their products and the outputs to
@@ -228,6 +238,8 @@ def check_packed_attention():
 
     from polyffusion_tpu_torch.ops.fused_attention import (
         TILE,
+        _forward,
+        packed_attention_lse_reference,
         packed_attention_reference,
         packed_self_attention,
     )
@@ -262,6 +274,23 @@ def check_packed_attention():
         if not fault_ratio > 1.0:
             raise AssertionError(f"the limit at B={b} T={t} {dtype} does not catch a dropped "
                                  f"key tile ({fault_ratio:.3g} x the limit)")
+        # the row log-sum-exp the bf16 forward writes when a gradient will be taken
+        lse_err = lse_ratio = lse_fault = None
+        if dtype == torch.bfloat16:
+            got_out, lse = _forward(q, k, v, scale, h, True, count=False)
+            torch.cuda.synchronize()
+            lse_want = packed_attention_lse_reference(q, k, scale, h)
+            lse_err = (lse - lse_want).abs().max().item()
+            lse_ratio = limit_ratio(lse, lse_want, LSE_ATOL, LSE_RTOL)
+            lse_fault = limit_ratio(packed_attention_lse_reference(q, k[:, :-TILE], scale, h),
+                                    lse_want, LSE_ATOL, LSE_RTOL)
+            if not (lse_ratio <= 1.0 and limit_ratio(got_out, want, atol, rtol) <= 1.0):
+                raise AssertionError(f"packed_attention lse B={b} T={t} {dtype}: max_abs_err "
+                                     f"{lse_err}, {lse_ratio:.3g} x the limit (atol {LSE_ATOL})")
+            if not lse_fault > 1.0:
+                raise AssertionError(f"the lse limit at B={b} T={t} {dtype} does not catch a "
+                                     f"dropped key tile ({lse_fault:.3g} x the limit)")
+            del got_out, lse, lse_want
         views = [x.view(b, t, h, d).transpose(1, 2) for x in (q, k, v)]
         ms = time_in_turns({
             "kernel": lambda: packed_self_attention(q, k, v, scale, h),
@@ -272,12 +301,16 @@ def check_packed_attention():
         bound, bound_by = attention_bound(b, t, h, d, dname, q.element_size())
         row = dict(shape=f"B={b} T={t} H={h} D={d} {dname}", max_abs_err=err, atol=atol,
                    rtol=rtol, limit_ratio=ratio, fault_limit_ratio=fault_ratio,
+                   lse_max_abs_err=lse_err, lse_limit_ratio=lse_ratio,
+                   lse_fault_limit_ratio=lse_fault,
                    ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
                    bound_ms=bound, bound_by=bound_by)
         log(f"[kernel] packed_attention {row['shape']}: max_abs_err {err:.3g}, "
             f"{ratio:.3g} x the limit (atol {atol}, rtol {rtol:.3g}; one dropped key tile: "
-            f"{fault_ratio:.3g} x)  "
-            f"kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
+            f"{fault_ratio:.3g} x)"
+            + (f"; lse max_abs_err {lse_err:.3g}, {lse_ratio:.3g} x its limit (atol {LSE_ATOL}; "
+               f"dropped key tile {lse_fault:.3g} x)" if lse_err is not None else "")
+            + f"  kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
             f"sdpa {ms['library']:.4f} ms  bound {bound:.4f} ms ({bound_by})")
         rows.append(row)
         del q, k, v, got, want, views
@@ -294,6 +327,7 @@ def check_attention_bwd():
 
     from polyffusion_tpu_torch.ops.fused_attention import (
         TILE,
+        _forward,
         packed_attention_bwd,
         packed_attention_bwd_reference,
     )
@@ -310,11 +344,17 @@ def check_attention_bwd():
         q, k, v, do = (torch.randn(b, t, h * d, device="cuda", generator=g).to(dtype)
                        for _ in range(4))
         scale = d**-0.5
-        got = packed_attention_bwd(q, k, v, do, scale, h)
+        # the bf16 forward's lse, as the train step's backward gets it; a direct
+        # call without one computes it first (the fp32 backward reads none)
+        lse = _forward(q, k, v, scale, h, True, count=False)[1] if dtype == torch.bfloat16 else None
+        got = packed_attention_bwd(q, k, v, do, scale, h, lse=lse)
+        got_direct = packed_attention_bwd(q, k, v, do, scale, h)
         torch.cuda.synchronize()
         want = packed_attention_bwd_reference(q, k, v, do, scale, h)
         err = max((x.float() - y.float()).abs().max().item() for x, y in zip(got, want))
-        ratio = max(limit_ratio(x, y, atol, rtol) for x, y in zip(got, want))
+        ratio = max(limit_ratio(x, y, atol, rtol) for x, y in (*zip(got, want),
+                                                               *zip(got_direct, want)))
+        del got_direct
         fq, fk, fv = packed_attention_bwd_reference(q, k[:, :-TILE], v[:, :-TILE], do, scale, h)
         pad = torch.zeros_like(k[:, -TILE:])
         fault = (fq, torch.cat([fk, pad], 1), torch.cat([fv, pad], 1))
@@ -329,8 +369,8 @@ def check_attention_bwd():
         leaves = [x.view(b, t, h, d).transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, scale=scale)
         dov = do.view(b, t, h, d).transpose(1, 2)
-        ms = time_in_turns({
-            "kernel": lambda: packed_attention_bwd(q, k, v, do, scale, h),
+        ms = time_in_turns({  # with the forward's lse, as SDPA's backward reuses its forward's
+            "kernel": lambda: packed_attention_bwd(q, k, v, do, scale, h, lse=lse),
             "plain": lambda: packed_attention_bwd_reference(q, k, v, do, scale, h),
             "library": lambda: torch.autograd.grad(out, leaves, dov, retain_graph=True),
         })
@@ -340,14 +380,15 @@ def check_attention_bwd():
                    rtol=rtol, limit_ratio=ratio, fault_limit_ratio=fault_ratio,
                    want_abs_max=max(y.float().abs().max().item() for y in want),
                    ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
-                   bound_ms=bound, bound_by=bound_by)
+                   bound_ms=bound, bound_by=bound_by,
+                   timed_with="the forward's lse computed beforehand")
         log(f"[kernel] packed_attention_bwd {row['shape']}: max_abs_err {err:.3g} "
             f"(|want| max {row['want_abs_max']:.3g}), {ratio:.3g} x the limit (atol {atol}, "
             f"rtol {rtol:.3g}; one dropped key tile: {fault_ratio:.3g} x)  "
             f"kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
             f"sdpa bwd {ms['library']:.4f} ms  bound {bound:.4f} ms ({bound_by})")
         rows.append(row)
-        del q, k, v, do, got, want, leaves, out, dov
+        del q, k, v, do, got, want, leaves, out, dov, lse
     return rows
 
 
@@ -462,6 +503,33 @@ def drive_head_major(counters):
     if got != want:
         raise AssertionError(f"expected launches {want}, got {got}")
     return got["head_major_attention"]
+
+
+def host_launch_costs():
+    """Host microseconds per call of kernels 1-3's public ops (a host clock
+    around 200 queued calls, ``profile_attention``) at the inference CLI's and
+    the train step's shapes: what a host-bound request pays per launch."""
+    from polyffusion_tpu_torch.profile_attention import measure
+
+    rows = measure()
+    for r in rows:
+        log(f"[host] {r['kernel']} {r['shape']}: {r['host_us_per_call']:.2f} us per call on the "
+            f"host, {r['device_ms_per_call']:.4f} ms on the device")
+    return rows
+
+
+def map_cache_delta(before, label):
+    """The bf16 attention kernels' tensor-map cache hits and misses since
+    ``before`` (``profile_attention.map_cache_counts``), logged under ``label``:
+    how often a launch on a real path encoded its maps anew."""
+    from polyffusion_tpu_torch.profile_attention import map_cache_counts
+
+    now = map_cache_counts()
+    out = {s: {"hits": now[s][0] - before[s][0], "misses": now[s][1] - before[s][1]}
+           for s in now}
+    log(f"[host] tensor-map cache over {label}: " + "; ".join(
+        f"{s} {c['hits']} hits, {c['misses']} misses" for s, c in out.items()))
+    return out
 
 
 def check_gn_bwd():
@@ -1596,6 +1664,7 @@ def main() -> int:
     )
     from polyffusion_tpu_torch.ops.gn_bwd import group_norm_bwd
     from polyffusion_tpu_torch.ops.repaint_epilogue import fused_repaint_epilogue
+    from polyffusion_tpu_torch.profile_attention import map_cache_counts
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1616,6 +1685,7 @@ def main() -> int:
 
     rows = check_packed_attention()
     bwd_rows = check_attention_bwd()
+    host_rows = host_launch_costs()
     hm_rows = check_head_major_attention()
     gn_rows = check_gn_bwd()
     epi_rows = check_repaint_epilogue()
@@ -1633,8 +1703,11 @@ def main() -> int:
 
     # the main paths: DDIM sampling, training, then the inference CLI on the
     # run directory the training wrote
+    cache = {}  # the tensor-map cache's hits and misses on each path
+    before = map_cache_counts()
     packed_self_attention.launches = 0
     sampling = drive_main_path(packed_self_attention)
+    cache["ddim_requests"] = map_cache_delta(before, "the DDIM-50 requests")
     if sampling == 0:
         raise AssertionError("the main path never launched packed_attention")
     counters = {"packed_attention": packed_self_attention,
@@ -1645,10 +1718,14 @@ def main() -> int:
     head_major = drive_head_major(counters)
     gn_conv_paths, _ = drive_gn_conv_requests(counters)
     with tempfile.TemporaryDirectory() as work:
+        before = map_cache_counts()
         training = drive_training_path(counters, work)
+        cache["training"] = map_cache_delta(before, "the training runs")
         if min(training[k] for k in ("packed_attention", "packed_attention_bwd", "gn_bwd")) == 0:
             raise AssertionError(f"the training path did not launch every kernel: {training}")
+        before = map_cache_counts()
         cli, request_secs, mask = drive_inference_cli(counters, work)
+        cache["inference_cli"] = map_cache_delta(before, "the inference CLI's requests A and B")
         profile_inpainting(work, mask, request_secs)
         # the texture and PianoTree conditions, on the same songs and chd8bar.pt
         write_condition_encoders(os.path.join(work, "pretrained"), seed=6)
@@ -1657,6 +1734,12 @@ def main() -> int:
         mix2_training, mix2_cli = drive_mix2_paths(counters, work)
 
     def entry(name, source, replaces, launches, rows, main_row, errs_of):
+        extra = {}
+        host = {r["shape"]: r["host_us_per_call"] for r in host_rows if r["kernel"] == name}
+        if host:
+            extra["host_us_per_launch"] = host
+        if name in ("packed_attention", "packed_attention_bwd"):
+            extra["tensor_map_cache_by_path"] = {path: c[name] for path, c in cache.items()}
         return {
             "name": name,
             "route": "cuda",
@@ -1671,6 +1754,7 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "at": main_row["shape"],
+            **extra,
             "shapes": rows,
         }
 

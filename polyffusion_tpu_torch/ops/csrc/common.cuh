@@ -1,6 +1,6 @@
-// Helpers shared by the port's attention kernels: tile copies into shared
-// memory, the bf16 tensor-core product (mma.sync m16n8k16) and its fragment
-// loads, and the once-per-device shared-memory attribute.
+// Helpers shared by the port's kernels: the bf16 tensor-core product
+// (mma.sync m16n8k16), float4 loads and stores, fp32 tile copies into shared
+// memory, and the once-per-device shared-memory attribute.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,29 +14,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr int kTile = 64;  // rows of every tile the kernels copy
 
-// Copies a (64, D) bf16 tile whose rows are row_stride elements apart into
-// shared memory, rows ld elements apart, 16 bytes per thread and load.
-template <int D, int kThreads>
-__device__ __forceinline__ void copy_tile_bf16(const bf16* __restrict__ src, long row_stride,
-                                               bf16* dst, int ld) {
-  constexpr int kChunks = kTile * D / 8;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / (D / 8);
-    const int d = (c % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + d) =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + d);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // c += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 accumulate.
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -44,15 +21,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 bf16 matrices from shared memory; lane l gives the
-// address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 __device__ __forceinline__ void load4(const float* p, float* out) {

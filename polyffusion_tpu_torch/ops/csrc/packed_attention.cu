@@ -1,79 +1,75 @@
 // Packed whole-sequence self-attention forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel polyffusion_tpu/ops/fused_attention.py:_packed_kernel.
-// For every batch item and head it reads q, k, v straight out of the packed
-// (B, T, H*D) layout that the to_q/to_k/to_v projections produce (head h is the
-// lane slice h*D:(h+1)*D, reached by stride, never transposed), computes
+// Replaces the TPU kernels polyffusion_tpu/ops/fused_attention.py:_packed_kernel
+// (kernel 1, packed_attention_fwd) and :_attn_kernel (kernel 3,
+// head_major_attention_fwd), one set of bodies. For every batch item and head
+// it reads q, k, v straight out of the packed (B, T, H*D) layout that the
+// to_q/to_k/to_v projections produce (head h is the lane slice h*D:(h+1)*D,
+// reached by stride, never transposed), computes
 //   S = Q K^T * scale            (fp32)
 //   P = softmax(S) per row       (fp32)
 //   O = P.astype(v.dtype) V      (fp32 accumulate)
 // and writes O back in the same packed layout. No (T, T) tensor ever reaches
-// device memory.
+// device memory. Kernel 3's (BH, T, D) layout is the packed one with one head.
+// On request (bf16, a gradient will be taken) it also writes the row
+// log-sum-exp lse = max + log(sum) of S * scale, fp32 (B, H, T), which the
+// bf16 backward (packed_attention_bwd.cu) takes in place of a pass over K for
+// the row max and sum. The fp32 backward recomputes them, so the fp32 forward
+// writes none.
 //
-// What bounds it on an H100: at the UNet's shapes (T = 1024 or 256, D = 64) the
-// work is 4*T*D operations per query row against 8*D bytes, so in bf16 T = 1024
-// is bound by the tensor cores' operations and T = 256 by bytes.
+// What bounds it on an H100: 4*T*D operations per query row against 8*D
+// bytes, so in bf16 T = 1024 (D = 64) is bound by the tensor cores'
+// operations (0.139 ms at (128, 1024, 4*64)) and T = 256 by bytes (0.020 ms
+// at (128, 256, 4*64)).
 //
-// What the design does about it: the TPU kernel keeps a whole sequence in VMEM,
-// but K and V of one head at T = 1024 (256 KiB in bf16) exceed the 227 KB of
-// shared memory a block can use. So one block owns 64 queries of one (batch,
-// head) and streams 64-key tiles of K and V through shared memory with an
-// online softmax (running row max and row sum in fp32, fp32 accumulators).
-//   - bf16: four warps of 16 query rows each run both products on the tensor
-//     cores (mma.sync m16n8k16, bf16 in, fp32 accumulate). S stays in the
-//     registers it is accumulated in, and the same registers, rounded to bf16,
-//     are the A operand of P V, as in FlashAttention-2. Shared-memory rows are
-//     padded by 16 bytes so that the fragment loads hit 32 distinct banks.
-//     wgmma and TMA (the route to the full tensor-core rate) are later work.
-//   - fp32: the tensor cores would round to TF32, so the fp32 kernel does its
-//     arithmetic as fp32 FMA on the CUDA cores (67 TFLOP/s peak): each of 256
-//     threads holds a 4 x 4 tile of S and a 4 x D/16 tile of O in registers and
-//     reads shared memory as float4, one load for every eight FMAs.
+// What the design does about it (bf16): one block owns 64 queries of one
+// (batch, head), computed by one consumer warpgroup, while a producer warp
+// streams 64-key tiles of K and V into a ring of three shared-memory stages
+// with TMA: one thread issues each (64, 64) box of a 3-D tensor map (column,
+// row, batch) in the 128-byte swizzle, and the stage's mbarrier counts the
+// bytes in; the consumers hand a stage back through a second mbarrier. Both
+// products are wgmma m64n64k16 with A from registers: S = Q K^T with Q read
+// once from its swizzled tile into registers and K from shared memory
+// (K-major), then O += P V with P the S accumulators rounded to bf16 (they
+// map pair by pair onto wgmma's register-A layout, as in FlashAttention-3)
+// and V from shared memory read MN-major through the descriptor's transpose
+// bit (V is not transposed in memory). Each step issues S of tile j and P V
+// of tile j - 1 together, so the tensor cores run P V while the online
+// softmax of tile j (running row max and sum in fp32, exp2 of one FMA of the
+// raw score) runs on the four threads that share a row. D = 128 is two
+// 64-column chunks: two boxes per tile, two accumulators of O. Tensor maps
+// are cached per host thread (hopper.cuh), so a launch encodes none once a
+// shape and address have been seen. Two consumer warpgroups per block (128
+// queries sharing each K/V tile) and 128-key tiles were both slower at the
+// UNet's shapes: fewer blocks fit an SM.
+//
+// fp32 (CUDA-core FMA, unchanged): the tensor cores would round to TF32, so
+// each of 256 threads holds a 4 x 4 tile of S and a 4 x D/16 tile of O in
+// registers and reads shared memory as float4, one load for every eight FMAs.
+//
 // Both round the probabilities to v's dtype before the P V product, as the TPU
 // kernel does (fused_attention.py:73-75); the row sum that divides O at the end
 // is the fp32 sum of the unrounded values.
 //
-// The same bodies are the head-major attention forward (head_major_attention_fwd
-// below), which replaces the TPU kernel fused_attention.py:_attn_kernel: its
-// (BH, T, D) layout is the packed one with one head (row stride D, BH in place
-// of B). That kernel takes any T >= 1, so the bodies have a compile-time tail
-// switch (kTail): the last query and key tiles may be ragged, rows at or past T
-// are copied as zeros and never stored, and keys at or past T score -inf before
-// the running maximum. Every key tile the loop visits holds at least one key
-// below T, so a row's maximum is finite after its first tile; the exponent's
-// offset is still taken as 0 while the maximum is -inf, so that no tile can
-// give exp(-inf - (-inf)). Without the switch (kernel 1, and the head-major
-// kernel at T % 64 == 0) the code is the packed kernel's as it was. At the
-// (512, 1024 / 256, 64) bf16 shapes of a batch-128 self-attention in
-// head-major form, the bound is that of the packed kernel at the same work.
+// Kernel 3 takes any T >= 1, so the bodies have a compile-time tail switch
+// (kTail): rows at or past T of the last tile read as zeros (the TMA map's
+// bounds; the fp32 copies write zeros) and are never stored, and keys at or
+// past T score -inf before the running maximum (a zero-filled key would score
+// 0). Every key tile the loop visits holds at least one key below T, so a
+// row's maximum is finite after its first tile; the exponent's offset is still
+// taken as 0 while the maximum is -inf, so that no tile can give
+// exp(-inf - (-inf)). Without the switch (kernel 1, and kernel 3 at
+// T % 64 == 0) no tail code is compiled.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBlockQ = kTile;  // queries per block
-constexpr int kBlockK = kTile;  // keys per streamed tile
-
-// copy_tile_bf16 / copy_tile_f32 of rows [0, rows) of a 64-row tile; with
-// kTail the rows at or past ``rows`` are written as zeros and never read.
-template <int D, int kThreads, bool kTail>
-__device__ __forceinline__ void copy_rows_bf16(const bf16* __restrict__ src, long row_stride,
-                                               bf16* dst, int ld, int rows) {
-  if constexpr (!kTail) {
-    copy_tile_bf16<D, kThreads>(src, row_stride, dst, ld);
-  } else {
-    constexpr int kChunks = kTile * D / 8;
-    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-      const int r = c / (D / 8);
-      const int d = (c % (D / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows) val = *reinterpret_cast<const uint4*>(src + r * row_stride + d);
-      *reinterpret_cast<uint4*>(dst + r * ld + d) = val;
-    }
-  }
-}
+constexpr int kBlockK = kTile;  // keys per streamed tile (fp32)
 
 template <int D, int kThreads, bool kTail>
 __device__ __forceinline__ void copy_rows_f32(const float* __restrict__ src, long row_stride,
@@ -101,134 +97,188 @@ __device__ __forceinline__ float exp_offset(float m) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync)
+// bf16: wgmma, a TMA-fed K/V ring, one producer warp
 
-constexpr int kWarpsTc = kBlockQ / 16;
-constexpr int kThreadsTc = 32 * kWarpsTc;
+constexpr int kStages = 3;  // the P V of tile j - 1 holds its stage while tile j + 1 loads
 
-// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16x16): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
-//   B (16x8):  b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
-//   C (16x8):  c0, c1 = C[g][2t..2t+1], c2, c3 = C[g+8][2t..2t+1]
+// Shared memory of one block: its 64 queries, then the ring of K/V tiles (a K
+// tile, then a V tile; each a stack of 64-column chunks of 64 rows).
+template <int D>
+struct FwdSmem {
+  static constexpr int kNc = D / kChunk;
+  static constexpr uint32_t kQ = kNc * kChunkBytes;
+  static constexpr uint32_t kStage = 2 * kNc * kChunkBytes;
+  static constexpr size_t kBytes = 1024 + kQ + kStages * kStage + (1 + 2 * kStages) * 8;
+};
+
 template <int D, bool kTail>
-__global__ void __launch_bounds__(kThreadsTc)
-packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, bf16* __restrict__ out,
-                             int seq, int n_heads, float scale) {
-  constexpr int kLd = D + 8;    // padded row: consecutive rows start 4 banks apart
-  constexpr int kKs = D / 16;   // k-steps of S = Q K^T
-  constexpr int kNd = D / 8;    // n-tiles of O
-  constexpr int kNk = kBlockK / 8;  // n-tiles of S
-  extern __shared__ uint4 smem_tc[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
-  bf16* ks = qs + kBlockQ * kLd;
-  bf16* vs = ks + kBlockK * kLd;
+__global__ void __launch_bounds__(128 + 32)
+attention_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
+                    float* __restrict__ lse, int seq, int n_heads, float scale) {
+  using L = FwdSmem<D>;
+  constexpr int kNc = L::kNc;
+  extern __shared__ uint8_t smem_fwd[];
+  uint8_t* qs = align_1024(smem_fwd);
+  uint8_t* ring = qs + L::kQ;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStage);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const long row_stride = static_cast<long>(n_heads) * D;
-  const long head_base = static_cast<long>(blockIdx.z) * seq * row_stride +
-                         static_cast<long>(blockIdx.y) * D;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int q0 = blockIdx.x * kBlockQ;
+  const int n_tiles = (seq + kBlockK - 1) / kBlockK;
 
-  copy_rows_bf16<D, kThreadsTc, kTail>(q + head_base + q0 * row_stride, row_stride, qs, kLd,
-                                       seq - q0);
-  __syncthreads();
-  uint32_t qa[kKs][4];  // this warp's 16 query rows as A fragments, kept for the whole loop
-#pragma unroll
-  for (int kk = 0; kk < kKs; ++kk) {
-    const bf16* r0 = qs + (warp * 16 + g) * kLd + kk * 16 + 2 * t;
-    qa[kk][0] = ld_b32(r0);
-    qa[kk][1] = ld_b32(r0 + 8 * kLd);
-    qa[kk][2] = ld_b32(r0 + 8);
-    qa[kk][3] = ld_b32(r0 + 8 * kLd + 8);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_mbar_init();
   }
+  __syncthreads();
 
-  float o[kNd][4];
-#pragma unroll
-  for (int n = 0; n < kNd; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < seq; k0 += kBlockK) {
-    copy_rows_bf16<D, kThreadsTc, kTail>(k + head_base + k0 * row_stride, row_stride, ks, kLd,
-                                         seq - k0);
-    copy_rows_bf16<D, kThreadsTc, kTail>(v + head_base + k0 * row_stride, row_stride, vs, kLd,
-                                         seq - k0);
-    __syncthreads();
-
-    // S = Q K^T: B[d][key] = K[key][d], so b0/b1 are adjacent pairs of a K row
-    float s[kNk][4];
-#pragma unroll
-    for (int n = 0; n < kNk; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKs; ++kk) {
-        const bf16* kr = ks + (n * 8 + g) * kLd + kk * 16 + 2 * t;
-        mma_bf16(s[n], qa[kk], ld_b32(kr), ld_b32(kr + 8));
+  if (threadIdx.x >= 128) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int c = 0; c < kNc; ++c)
+        tma_load_chunk(qs + c * kChunkBytes, &qmap, q_full, h * D + c * kChunk, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[st], (j / kStages - 1) & 1);
+        uint8_t* ks = ring + st * L::kStage;
+        mbar_expect_tx(&full[st], L::kStage);
+        for (int c = 0; c < kNc; ++c) {
+          tma_load_chunk(ks + c * kChunkBytes, &kmap, &full[st], h * D + c * kChunk,
+                         j * kBlockK, b);
+          tma_load_chunk(ks + (kNc + c) * kChunkBytes, &vmap, &full[st], h * D + c * kChunk,
+                         j * kBlockK, b);
+        }
       }
     }
+    return;
+  }
 
-    // online softmax; a row's 64 scores lie with the 4 threads of one quad
+  // the consumer warpgroup: 64 query rows, 16 per warp; g = lane / 4 owns rows
+  // g and g + 8 of its warp's 16, with the 3 other threads of its quad. The
+  // softmax of tile j runs while the tensor cores do P V of tile j - 1.
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const float c = scale * kLog2e;  // exp(x scale) = 2^(x c)
+
+  float o[kNc][32];
+#pragma unroll
+  for (int ch = 0; ch < kNc; ++ch)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[ch][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running maximum of the unscaled scores
+  float l[2] = {0.f, 0.f};
+  float s[32];        // S = Q K^T: s[4n + e] is row g + 8 (e / 2), key 8n + 2t + e % 2
+  uint32_t pa[4][4];  // P of the last tile in bf16, the A operand of P V
+
+  mbar_wait(q_full, 0);
+  uint32_t qa[D / 16][4];  // Q as the A operand, from the swizzled chunks
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint8_t* base = qs + (kk / 4) * kChunkBytes + (warp * 16 + g) * 128 + 4 * t;
+    const int p0 = ((2 * (kk % 4)) ^ g) * 16, p1 = ((2 * (kk % 4) + 1) ^ g) * 16;
+    qa[kk][0] = *reinterpret_cast<const uint32_t*>(base + p0);
+    qa[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * 128 + p0);
+    qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + p1);
+    qa[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * 128 + p1);
+  }
+  for (int j = 0; j <= n_tiles; ++j) {
+    const int st = j % kStages;
+    const int prev = (j + kStages - 1) % kStages;
+    if (j < n_tiles) mbar_wait(&full[st], (j / kStages) & 1);
+    wgmma_fence();
+    if (j < n_tiles) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_rs<0>(s, qa[kk], desc_kmajor(ring + st * L::kStage, kk), kk > 0);
+      wgmma_commit();
+    }
+    if (j > 0) {  // O += P V of tile j - 1: V MN-major
+      const uint8_t* vs = ring + prev * L::kStage + kNc * kChunkBytes;
+#pragma unroll
+      for (int ch = 0; ch < kNc; ++ch)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(o[ch], pa[kk], desc_mnmajor(vs, ch, kk), 1);
+      wgmma_commit();
+    }
+    if (j == n_tiles) {
+      wgmma_wait<0>();
+#pragma unroll
+      for (int ch = 0; ch < kNc; ++ch) fence_regs(o[ch]);
+      break;
+    }
+    if (j > 0) wgmma_wait<1>(); else wgmma_wait<0>();
+    fence_regs(s);
+
+    // online softmax of tile j; a row's scores lie with the 4 threads of a quad
+    float alpha[2], rs[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
+      float mx = m[r];
 #pragma unroll
-      for (int n = 0; n < kNk; ++n) {
-        s[n][2 * r] *= scale;
-        s[n][2 * r + 1] *= scale;
-        if constexpr (kTail) {  // keys n*8 + 2t and n*8 + 2t + 1 of this tile
-          const int key = k0 + n * 8 + 2 * t;
-          if (key >= seq) s[n][2 * r] = -INFINITY;
-          if (key + 1 >= seq) s[n][2 * r + 1] = -INFINITY;
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * n + 2 * r + e];
+          if constexpr (kTail) {
+            if (j * kBlockK + 8 * n + 2 * t + e >= seq) x = -INFINITY;
+          }
+          mx = fmaxf(mx, x);
         }
-        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float off = exp_offset<kTail>(m_new);
-      const float alpha = expf(m[r] - off);
-      float rs = 0.f;
+      const float off = exp_offset<kTail>(mx) * c;
+      alpha[r] = fast_exp2(fmaf(m[r], c, -off));
+      float sum = 0.f;
 #pragma unroll
-      for (int n = 0; n < kNk; ++n) {
-        s[n][2 * r] = expf(s[n][2 * r] - off);
-        s[n][2 * r + 1] = expf(s[n][2 * r + 1] - off);
-        rs += s[n][2 * r] + s[n][2 * r + 1];
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[r] = l[r] * alpha + rs;
-      m[r] = m_new;
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int n = 0; n < kNd; ++n) {
-        o[n][2 * r] *= alpha;
-        o[n][2 * r + 1] *= alpha;
-      }
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * n + 2 * r + e];
+          x = fast_exp2(fmaf(x, c, -off));
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      rs[r] = sum;
+      m[r] = mx;
     }
 
-    // O += P V: the S accumulators of key tiles 2kk and 2kk+1, rounded to bf16,
-    // are the A fragment of keys 16kk..16kk+15; V comes in by ldmatrix.trans
+    if (j > 0) {  // P V of tile j - 1 is done: its stage goes back, O is rescaled
+      wgmma_wait<0>();
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const bf16* vrow = vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd + (lane >> 4) * 8;
+      for (int ch = 0; ch < kNc; ++ch) fence_regs(o[ch]);
 #pragma unroll
-      for (int n = 0; n < kNd; n += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vrow + n * 8);
-        mma_bf16(o[n], pa, b[0], b[1]);
-        mma_bf16(o[n + 1], pa, b[2], b[3]);
-      }
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+      mbar_arrive(&empty[prev]);
     }
-    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int ch = 0; ch < kNc; ++ch)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[ch][4 * n + 2 * r] *= alpha[r];
+          o[ch][4 * n + 2 * r + 1] *= alpha[r];
+        }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(s, kk, pa[kk]);
   }
 
+  const long row_stride = static_cast<long>(n_heads) * D;
+  const long head_base = static_cast<long>(b) * seq * row_stride + static_cast<long>(h) * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
@@ -236,8 +286,13 @@ packed_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     const float inv = 1.f / l[r];
     bf16* dst = out + head_base + row * row_stride + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kNd; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) = pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int ch = 0; ch < kNc; ++ch)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + ch * kChunk + n * 8) =
+            pack2_bf16(o[ch][4 * n + 2 * r] * inv, o[ch][4 * n + 2 * r + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long>(b) * n_heads + h) * seq + row] = m[r] * scale + logf(l[r]);
   }
 }
 
@@ -381,26 +436,25 @@ packed_attention_fp32_kernel(const float* __restrict__ q, const float* __restric
 
 // ---------------------------------------------------------------------------
 
-template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, std::atomic<uint64_t>& smem_set,
-                   const void* q, const void* k, const void* v, void* out, int batch, int seq,
-                   int n_heads, float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, n_heads, batch);
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), seq, n_heads, scale);
-  return cudaGetLastError();
-}
-
 template <int D, bool kTail>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int batch,
-                        int seq, int n_heads, float scale, cudaStream_t stream) {
-  constexpr size_t kSmem = sizeof(bf16) * 3 * kBlockQ * (D + 8);
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int batch, int seq, int n_heads, float scale, cudaStream_t stream) {
+  using L = FwdSmem<D>;
   static std::atomic<uint64_t> smem_set{0};
-  return launch<bf16>(packed_attention_bf16_kernel<D, kTail>, kThreadsTc, kSmem, smem_set, q, k,
-                      v, out, batch, seq, n_heads, scale, stream);
+  const auto kernel = attention_fwd_wgmma<D, kTail>;
+  cudaError_t err = allow_smem(kernel, L::kBytes, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[3];
+  const void* srcs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    err = chunk_map(&maps[i], srcs[i], n_heads * D, seq, batch);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, n_heads, batch);
+  kernel<<<grid, 128 + 32, L::kBytes, stream>>>(maps[0], maps[1], maps[2],
+                                                 static_cast<bf16*>(out), lse, seq, n_heads,
+                                                 scale);
+  return cudaGetLastError();
 }
 
 template <int D, bool kTail>
@@ -408,35 +462,45 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, 
                         int seq, int n_heads, float scale, cudaStream_t stream) {
   constexpr size_t kSmem = sizeof(float) * (3 * kBlockQ * (D + 4) + kBlockQ * kLdP);
   static std::atomic<uint64_t> smem_set{0};
-  return launch<float>(packed_attention_fp32_kernel<D, kTail>, kThreads32, kSmem, smem_set, q, k,
-                       v, out, batch, seq, n_heads, scale, stream);
+  const auto kernel = packed_attention_fp32_kernel<D, kTail>;
+  const cudaError_t err = allow_smem(kernel, kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, n_heads, batch);
+  kernel<<<grid, kThreads32, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), seq, n_heads, scale);
+  return cudaGetLastError();
 }
 
 template <bool kTail>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int batch, int seq,
-                     int n_heads, int head_dim, int dtype, float scale, cudaStream_t s) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse,
+                     int batch, int seq, int n_heads, int head_dim, int dtype, float scale,
+                     cudaStream_t s) {
+  if (dtype == 0 && lse != nullptr) return cudaErrorInvalidValue;  // the fp32 body writes none
   if (dtype == 0 && head_dim == 64)
     return launch_fp32<64, kTail>(q, k, v, out, batch, seq, n_heads, scale, s);
   if (dtype == 0 && head_dim == 128)
     return launch_fp32<128, kTail>(q, k, v, out, batch, seq, n_heads, scale, s);
   if (dtype == 1 && head_dim == 64)
-    return launch_bf16<64, kTail>(q, k, v, out, batch, seq, n_heads, scale, s);
+    return launch_bf16<64, kTail>(q, k, v, out, lse, batch, seq, n_heads, scale, s);
   if (dtype == 1 && head_dim == 128)
-    return launch_bf16<128, kTail>(q, k, v, out, batch, seq, n_heads, scale, s);
+    return launch_bf16<128, kTail>(q, k, v, out, lse, batch, seq, n_heads, scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16. lse: null, or (bf16 only) (batch, n_heads,
+// seq) fp32 for the row log-sum-exp. Returns a cudaError_t (0 on success).
 extern "C" int packed_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                    int batch, int seq, int n_heads, int head_dim,
+                                    void* lse, int batch, int seq, int n_heads, int head_dim,
                                     int dtype, float scale, void* stream) {
   if (seq <= 0 || seq % kBlockQ != 0 || batch <= 0 || n_heads <= 0 || batch > 65535 ||
       n_heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch<false>(q, k, v, out, batch, seq, n_heads, head_dim, dtype,
-                                          scale, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch<false>(q, k, v, out, static_cast<float*>(lse), batch, seq,
+                                          n_heads, head_dim, dtype, scale,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 // Head-major (BH, T, D) attention, any T >= 1 (kernel 3): the packed kernel with
@@ -448,7 +512,7 @@ extern "C" int head_major_attention_fwd(const void* q, const void* k, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       seq % kBlockQ == 0
-          ? dispatch<false>(q, k, v, out, bh, seq, 1, head_dim, dtype, scale, s)
-          : dispatch<true>(q, k, v, out, bh, seq, 1, head_dim, dtype, scale, s);
+          ? dispatch<false>(q, k, v, out, nullptr, bh, seq, 1, head_dim, dtype, scale, s)
+          : dispatch<true>(q, k, v, out, nullptr, bh, seq, 1, head_dim, dtype, scale, s);
   return static_cast<int>(err);
 }

@@ -14,12 +14,17 @@ source) replaces ``_attn_kernel``, and whose backward differentiates the plain
 version ``head_major_attention_reference`` (``_einsum_reference``), as JAX's
 does. No model path calls the head-major op: the UNet's attention goes
 through ``ops/attention.py`` to the packed kernels, as in the JAX package.
+
+When a gradient will be taken in bf16, the packed forward also returns the
+row log-sum-exp of the logits (``packed_attention_lse_reference``), and the
+backward forms P from it instead of recomputing the row max and sum. The fp32
+backward recomputes them, so an fp32 forward saves none.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,19 +63,37 @@ def packed_attention_reference(
     return o.reshape(b, t, hd).to(q.dtype)
 
 
+def packed_attention_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, scale: float, n_heads: int
+) -> torch.Tensor:
+    """The row log-sum-exp of the fp32 logits S * scale, (B, H, T) fp32: the
+    forward's second output when a gradient will be taken."""
+    b, t, hd = q.shape
+    d = hd // n_heads
+    qh = q.reshape(b, t, n_heads, d).float()
+    kh = k.reshape(b, k.shape[1], n_heads, d).float()
+    return torch.logsumexp(torch.einsum("bihd,bjhd->bhij", qh, kh) * scale, dim=-1)
+
+
 def packed_attention_bwd_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float, n_heads: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float,
+    n_heads: int, lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain backward, ``_packed_bwd_kernel``'s arithmetic: P recomputed in
     fp32 and rounded to the input dtype (Pc) after its normalisation; dV = Pc^T
     dO, dP = dO V^T, dS = Pc (dP - rowsum(dP Pc)) scale rounded to the input
-    dtype, dQ = dS K, dK = dS^T Q, all accumulated in fp32."""
+    dtype, dQ = dS K, dK = dS^T Q, all accumulated in fp32. Given the forward's
+    ``lse`` (B, H, T), P is exp(S scale - lse), the backward kernel's form;
+    without it, P is normalised by its own row max and sum."""
     b, t, hd = q.shape
     d = hd // n_heads
     qh, kh, vh, doh = (x.reshape(b, x.shape[1], n_heads, d).float() for x in (q, k, v, do))
     s = torch.einsum("bihd,bjhd->bhij", qh, kh) * scale
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    if lse is None:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = p / p.sum(dim=-1, keepdim=True)
+    else:
+        p = torch.exp(s - lse[..., None])
     pc = p.to(q.dtype).float()
     dv = torch.einsum("bhij,bihd->bjhd", pc, doh)
     dp = torch.einsum("bihd,bjhd->bhij", doh, vh)
@@ -107,41 +130,75 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _forward(q, k, v, scale: float, n_heads: int) -> torch.Tensor:
-    """The forward kernel on a CUDA tensor, its plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        return packed_attention_reference(q, k, v, scale, n_heads)
-    fn = _kernel("packed_attention", "packed_attention_fwd",
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+def _forward(q, k, v, scale: float, n_heads: int, with_lse: bool = False, *,
+             count: bool = True):
+    """(out, lse): the forward kernel on a CUDA tensor, its plain version on a
+    CPU tensor; lse (B, H, T) fp32 only ``with_lse`` (bf16 inputs only), else
+    None. ``count``: whether the launch adds to the forward's count."""
     b, t, hd = q.shape
+    if with_lse and q.dtype != torch.bfloat16:
+        raise ValueError(f"the forward writes lse for bfloat16 only, not {q.dtype}")
+    if q.device.type == "cpu":
+        lse = packed_attention_lse_reference(q, k, scale, n_heads) if with_lse else None
+        return packed_attention_reference(q, k, v, scale, n_heads), lse
+    fn = _kernel("packed_attention", "packed_attention_fwd",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty_like(q)
+    lse = (torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device) if with_lse
+           else None)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t, n_heads, hd // n_heads, _DTYPE_CODES[q.dtype], float(scale), _stream(q))
+                 None if lse is None else lse.data_ptr(), b, t, n_heads, hd // n_heads,
+                 _DTYPE_CODES[q.dtype], float(scale), _stream(q))
     if err != 0:
         raise RuntimeError(f"packed_attention_fwd launch failed: cudaError {err}")
-    packed_self_attention.launches += 1
-    return out
+    if count:
+        packed_self_attention.launches += 1
+    return out, lse
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor, n_heads: int) -> None:
+    b, t, _ = q.shape
+    if lse.shape != (b, n_heads, t) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 of shape {(b, n_heads, t)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if lse.device != q.device:
+        raise ValueError(f"lse lies on {lse.device}, q on {q.device}")
+    if not lse.is_contiguous() or lse.data_ptr() % 16:
+        raise ValueError("lse must be contiguous and 16-byte aligned")
 
 
 def packed_attention_bwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float, n_heads: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, scale: float,
+    n_heads: int, *, lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of packed self-attention for the output gradient ``do``.
 
-    On a CUDA tensor this launches the backward kernel (and raises if it
-    cannot); on a CPU tensor it runs ``packed_attention_bwd_reference``."""
+    ``lse``: the forward's row log-sum-exp (B, H, T) fp32. On a CUDA tensor
+    this launches the backward kernel (and raises if it cannot); given no
+    ``lse`` there, it first computes it with the forward kernel (not counted as
+    a forward launch). The bf16 kernel forms P from ``lse``; the fp32 kernel
+    recomputes its row statistics and reads none. On a CPU tensor it runs
+    ``packed_attention_bwd_reference`` (with ``lse`` where given)."""
     _check(q, k, v, do, n_heads=n_heads)
+    if lse is not None:
+        _check_lse(lse, q, n_heads)
     if q.device.type == "cpu":
-        return packed_attention_bwd_reference(q, k, v, do, scale, n_heads)
+        return packed_attention_bwd_reference(q, k, v, do, scale, n_heads, lse)
     fn = _kernel("packed_attention_bwd", "packed_attention_bwd",
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     b, t, hd = q.shape
+    if q.dtype == torch.bfloat16:
+        if lse is None:
+            lse = _forward(q, k, v, scale, n_heads, True, count=False)[1]
+        scratch = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)  # dsum
+    else:
+        scratch = torch.empty(b, n_heads, t, 3, dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(b, n_heads, t, 3, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, t, n_heads, hd // n_heads,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 None if lse is None else lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), scratch.data_ptr(), b, t, n_heads, hd // n_heads,
                  _DTYPE_CODES[q.dtype], float(scale), _stream(q))
     if err != 0:
         raise RuntimeError(f"packed_attention_bwd launch failed: cudaError {err}")
@@ -154,33 +211,38 @@ packed_attention_bwd.launches = 0
 
 class _PackedAttention(torch.autograd.Function):
     """Forward kernel with the backward kernel as its gradient (the JAX
-    package's ``_fused_packed`` custom VJP); q, k, v are kept for the backward,
-    which recomputes the softmax."""
+    package's ``_fused_packed`` custom VJP); q, k, v and the forward's row
+    log-sum-exp are kept for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, n_heads):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, scale, n_heads, with_lse):
+        out, lse = _forward(q, k, v, scale, n_heads, with_lse)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.scale, ctx.n_heads = scale, n_heads
-        return _forward(q, k, v, scale, n_heads)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, lse = ctx.saved_tensors
         # autograd's incoming gradient need not be contiguous
-        dq, dk, dv = packed_attention_bwd(q, k, v, do.contiguous(), ctx.scale, ctx.n_heads)
-        return dq, dk, dv, None, None
+        dq, dk, dv = packed_attention_bwd(q, k, v, do.contiguous(), ctx.scale, ctx.n_heads,
+                                          lse=lse)
+        return dq, dk, dv, None, None, None
 
 
 def packed_self_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, n_heads: int
 ) -> torch.Tensor:
     """(B, T, H*D) packed self-attention, T % 64 == 0, D in {64, 128};
-    differentiable, with ``packed_attention_bwd`` as its backward.
+    differentiable, with ``packed_attention_bwd`` as its backward. The forward
+    writes the row log-sum-exp only when a gradient will be taken in bf16.
 
     On a CUDA tensor this launches the kernels (and raises if it cannot); on a
     CPU tensor it runs their plain versions."""
     _check(q, k, v, n_heads=n_heads)
-    return _PackedAttention.apply(q, k, v, scale, n_heads)
+    with_lse = (q.dtype == torch.bfloat16 and torch.is_grad_enabled()
+                and any(x.requires_grad for x in (q, k, v)))
+    return _PackedAttention.apply(q, k, v, scale, n_heads, with_lse)
 
 
 packed_self_attention.launches = 0

@@ -27,8 +27,10 @@ from .tasks import SDFTask
 CLASSES = (
     ("repaint_epilogue", "repaint_epilogue (this port's kernel)"),
     ("attn_bwd", "packed_attention_bwd (this port's kernel)"),
+    ("attention_bwd", "packed_attention_bwd (this port's kernel)"),
     ("gn_bwd", "gn_bwd (this port's kernel)"),
     ("packed_attention", "packed_attention (this port's kernel)"),
+    ("attention_fwd", "packed_attention (this port's kernel)"),
     ("gn_silu_conv_q", "gn_silu_conv_q (this port's kernel 5)"),
     ("gn_silu_amax", "gn_silu_amax (kernel 5's amax pass)"),
     ("gn_silu_conv", "gn_silu_conv (this port's kernel 4)"),

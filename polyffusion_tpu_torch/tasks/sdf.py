@@ -76,6 +76,12 @@ class SDFTask:
         if cfg.get("concat_blurry", False):
             raise NotImplementedError(
                 "concat_blurry (sdf_concat) is not ported yet (ROADMAP.md item 8)")
+        distilled = [key for key in ("v_prediction", "distill_grid", "distilled_scale")
+                     if cfg.get(key) not in (None, False)]
+        if distilled:
+            raise NotImplementedError(
+                f"{', '.join(distilled)}: distilled (v-prediction) models are not ported "
+                "yet (ROADMAP.md item 9)")
         self.cond_mode = cfg.get("cond_mode", "cond")
         self.use_enc = bool(cfg.get("use_enc", self.cond_type == "pnotree"))
         needed = {

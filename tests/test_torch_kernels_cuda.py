@@ -17,6 +17,7 @@ from polyffusion_tpu_torch.ops.fused_attention import (
     head_major_attention_reference,
     packed_attention_bwd,
     packed_attention_bwd_reference,
+    packed_attention_lse_reference,
     packed_attention_reference,
     packed_self_attention,
 )
@@ -188,6 +189,100 @@ def test_cuda_attention_bwd_matches_plain(b, t, h, d, dtype):
     for x, y in zip(got, want):
         assert x.dtype == dtype
         assert _within(x, y, *BWD_LIMITS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,t,h,d,dtype",
+    [
+        (4, 1024, 4, 64, torch.bfloat16),
+        (4, 256, 4, 64, torch.bfloat16),
+        (2, 192, 2, 64, torch.bfloat16),
+        (2, 512, 2, 128, torch.bfloat16),
+        (2, 128, 2, 128, torch.bfloat16),
+        (3, 64, 3, 64, torch.bfloat16),
+        (1, 2048, 2, 64, torch.bfloat16),
+    ],
+)
+def test_cuda_forward_lse_matches_plain(b, t, h, d, dtype):
+    """The bf16 forward's row log-sum-exp (fp32, written when a gradient will
+    be taken) against the plain one, D = 64 and 128; the output meets kernel
+    1's limit in each."""
+    from polyffusion_tpu_torch.ops.fused_attention import _forward
+
+    g = _card()
+    q, k, v = (torch.randn(b, t, h * d, device="cuda", generator=g).to(dtype) for _ in range(3))
+    out, lse = _forward(q, k, v, d**-0.5, h, True)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, t) and lse.dtype == torch.float32
+    assert _within(lse, packed_attention_lse_reference(q, k, d**-0.5, h), 1e-5, 0.0)
+    assert _within(out, packed_attention_reference(q, k, v, d**-0.5, h), *ATTN_LIMITS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,t,h,d,dtype",
+    [
+        (4, 1024, 4, 64, torch.bfloat16),
+        (4, 256, 4, 64, torch.bfloat16),
+        (2, 512, 2, 128, torch.bfloat16),
+        (2, 128, 2, 128, torch.bfloat16),
+        (3, 64, 3, 64, torch.bfloat16),
+    ],
+)
+def test_cuda_attention_bwd_with_forward_lse_matches_plain(b, t, h, d, dtype):
+    """The backward given the forward kernel's lse against the plain backward
+    (its own row statistics), and against the plain backward in lse form."""
+    from polyffusion_tpu_torch.ops.fused_attention import _forward
+
+    g = _card()
+    q, k, v, do = (torch.randn(b, t, h * d, device="cuda", generator=g).to(dtype) for _ in range(4))
+    _, lse = _forward(q, k, v, d**-0.5, h, True)
+    before = (packed_attention_bwd.launches, packed_self_attention.launches)
+    got = packed_attention_bwd(q, k, v, do, d**-0.5, h, lse=lse)
+    torch.cuda.synchronize()
+    assert (packed_attention_bwd.launches, packed_self_attention.launches) == (
+        before[0] + 1, before[1])
+    for want in (packed_attention_bwd_reference(q, k, v, do, d**-0.5, h),
+                 packed_attention_bwd_reference(q, k, v, do, d**-0.5, h, lse)):
+        for x, y in zip(got, want):
+            assert _within(x, y, *BWD_LIMITS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_attention_bwd_is_reproducible(d):
+    """The bf16 backward has no atomics: every sum has one owner, so two calls
+    on the same inputs give the same bits."""
+    from polyffusion_tpu_torch.ops.fused_attention import _forward
+
+    g = _card()
+    b, t, h = 2, 256, 2
+    q, k, v, do = (torch.randn(b, t, h * d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    _, lse = _forward(q, k, v, d**-0.5, h, True)
+    first = packed_attention_bwd(q, k, v, do, d**-0.5, h, lse=lse)
+    second = packed_attention_bwd(q, k, v, do, d**-0.5, h, lse=lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bh,t,d",
+    [(5, 130, 128), (3, 300, 64), (1, 63, 64), (9, 127, 128), (2, 129, 64)],
+)
+def test_cuda_head_major_ragged_bf16_matches_plain(bh, t, d):
+    """Ragged T through the TMA-fed bf16 body: the map zero-fills rows past T,
+    the key mask scores them -inf, and no row past T is stored."""
+    g = _card()
+    q, k, v = (torch.randn(bh, t, d, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    got = fused_self_attention(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _within(got, head_major_attention_reference(q, k, v, d**-0.5),
+                   *ATTN_LIMITS[torch.bfloat16])
 
 
 @pytest.mark.cuda
