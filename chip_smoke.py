@@ -14,14 +14,19 @@ kernels 1-3 (``profile_attention``) and the tensor-map cache's hits and
 misses on each main path, holds the full-width fp32 UNet eval (with the
 GroupNorm-SiLU-conv sites unfused and fused), one full-width fp32 train step
 and a full-width fp32 DDPM RePaint run on the card against the CPU, and the
-full-width bf16 UNet's int8 eps against its fused eps, then drives the main paths through the user's entry points, each with the
-kernels' launch counts set to 0 just before it and read just after:
+full-width bf16 UNet's int8 eps against its fused eps (the train step also with the
+GroupNorm-SiLU-conv sites fused: kernel 4 forward, a backward through its
+plain version), then drives the main paths through the user's entry points,
+each with the kernels' launch counts set to 0 just before it and read just
+after:
 
 - sampling: the full-width ``sdf_chd8bar`` preset in bf16 with seeded random
   weights, chord one-hots -> chord encoder -> ``InferenceSession.generate`` at
   DDIM-50, CFG 5, for requests of batch 1, 16, 64 and 64; then two requests
   at batch 64 with ``gn_conv="fused"`` (kernel 4 at all 44 sites of every UNet
   eval) and two with ``gn_conv="int8"`` (kernel 5);
+- training through kernel 4: three full-width bf16 train steps at batch 16
+  with ``gn_conv="fused"``, 44 kernel-4 launches a step (12 two-input);
 - training: ``polyffusion_tpu_torch.main`` on synthetic songs with a seeded
   random ``chd8bar.pt``, the same preset in bf16 at its batch 16, 30 steps with
   one validation and one checkpoint, then ``--resume`` for 6 more;
@@ -160,6 +165,7 @@ COND_REQUESTS = (("sdf_chd8bar_txt", 64), ("sdf_txtvnl", 16))  # (preset, batch)
 MIX2_STEPS = 12
 GN_CONV_SITES, GN_CONV_TWO_INPUT = 44, 12  # per UNet eval: 22 ResBlocks x 2; decoder in_layers
 GN_CONV_BATCH = 64
+FUSED_TRAIN_STEPS = 3  # bf16 train steps through kernel 4 (counted per step)
 # the batch-128 sites of one UNet eval (C1, C2, O, H = W, residual, sites):
 # 32 one-input (in_layers without a residual, out_layers with the block's),
 # 12 two-input (the decoder's in_layers)
@@ -1026,10 +1032,12 @@ def check_int8_against_fused():
 
 
 
-def check_train_step_against_cpu():
+def check_train_step_against_cpu(gn_conv="unfused"):
     """One full-width fp32 train step at batch 2 on the card (with the kernels)
     against the CPU (with their plain versions): same weights, batch, t and
-    noise; the loss, the gradients and their norm, and the updated parameters."""
+    noise; the loss, the gradients and their norm, and the updated parameters.
+    With ``gn_conv="fused"`` the forward runs kernel 4 at every ResBlock site on
+    the card (its backward recomputes through the plain version)."""
     import torch
 
     from polyffusion_tpu_torch.tasks.sdf import StepNoise
@@ -1043,7 +1051,7 @@ def check_train_step_against_cpu():
     noise = torch.from_numpy(rng.standard_normal((2, 2, 128, 128)).astype(np.float32))
     out = {}
     for device in ("cuda", "cpu"):
-        task = make_task(cfg, device, seed=3, training=True)
+        task = make_task(cfg, device, seed=3, training=True, gn_conv=gn_conv)
         state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm)
         batch = (x0.to(device), None, chords.to(device), None)
         t0 = time.perf_counter()
@@ -1064,7 +1072,8 @@ def check_train_step_against_cpu():
             grad_ratio, worst = r, k
     err = torch.cat([(got[k] - w).abs().flatten() for k, w in want.items()])
     share = (err > STEP_PARAM_TIGHT).float().mean().item()
-    log(f"[train] full-width fp32 step (B=2) card vs CPU: loss {loss:.7g} vs {want_loss:.7g} "
+    log(f"[train] full-width fp32 step (B=2, gn_conv {gn_conv}) card vs CPU: loss {loss:.7g} vs "
+        f"{want_loss:.7g} "
         f"(rel {loss_err:.3g}, limit {STEP_LOSS_RTOL}), grad_norm {norm:.7g} vs {want_norm:.7g} "
         f"(rel {norm_err:.3g}, limit {STEP_NORM_RTOL}); gradients per tensor {grad_ratio:.3g} x "
         f"the limit (rel {STEP_GRAD_RTOL} in norm; worst {worst}); params max_abs_err "
@@ -1072,7 +1081,55 @@ def check_train_step_against_cpu():
         f"{share:.3g} (limit {STEP_PARAM_SHARE}); card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
     if not (loss_err <= STEP_LOSS_RTOL and norm_err <= STEP_NORM_RTOL and grad_ratio <= 1.0
             and err.max().item() <= 2 * lr and share <= STEP_PARAM_SHARE):
-        raise AssertionError("the full-width fp32 train step on the card disagrees with the CPU")
+        raise AssertionError(f"the full-width fp32 train step (gn_conv {gn_conv}) on the card "
+                             "disagrees with the CPU")
+
+
+def drive_fused_train_steps(counters):
+    """FUSED_TRAIN_STEPS full-width bf16 train steps at the preset's batch 16
+    with ``gn_conv="fused"`` (bf16 compute over fp32 masters), each with the
+    launch counts set to 0 just before it and read just after: kernel 4 at all
+    44 ResBlock sites of the forward (12 of them two-input; its backward
+    recomputes through the plain version), kernels 1 and 2 at the 11
+    self-attention sites, kernel 6 at the 12 GroupNorms outside the fused sites
+    (11 transformer norms, the output norm). The weights change every step, so
+    every step packs the kernel's weights anew. Returns the launches by kernel
+    over all steps."""
+    import torch
+
+    from polyffusion_tpu_torch.tasks.sdf import StepNoise
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+
+    cfg = full_cfg(bf16=True)
+    task = make_task(cfg, "cuda", seed=4, training=True, gn_conv="fused")
+    state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm, bf16=True)
+    step = make_train_step(task)
+    rng = np.random.default_rng(4)
+    b = cfg.batch_size
+    want = dict({name: 0 for name in counters}, gn_silu_conv=GN_CONV_SITES,
+                packed_attention=ATTENTION_SITES, packed_attention_bwd=ATTENTION_SITES,
+                gn_bwd=GROUPNORM_SITES - GN_CONV_SITES)
+    totals = {name: 0 for name in counters}
+    for i in range(FUSED_TRAIN_STEPS):
+        x0 = torch.from_numpy((rng.random((b, 2, 128, 128)) > 0.97).astype(np.uint8)).cuda()
+        chords = torch.from_numpy(random_chords(rng, b)).cuda()
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, (x0, None, chords, None), seed=i)
+        loss = metrics["loss"].item()
+        secs = time.perf_counter() - t0
+        got = {name: fn.launches for name, fn in counters.items()}
+        n_two = counters["gn_silu_conv"].two_input_launches
+        log(f"[train] fused bf16 step {i} (B={b}): loss {loss:.6g}, {1e3 * secs:.3f} ms (host "
+            f"clock, first includes warm-up), launches {got}, two-input {n_two}")
+        if got != want or n_two != GN_CONV_TWO_INPUT or not np.isfinite(loss):
+            raise AssertionError(f"expected launches {want} with {GN_CONV_TWO_INPUT} two-input "
+                                 f"and a finite loss, got {got}, {n_two}, {loss}")
+        for name in totals:
+            totals[name] += got[name]
+    del task, state
+    return totals
 
 
 def nhwc(a):
@@ -1696,6 +1753,7 @@ def main() -> int:
     check_unet_against_cpu(gn_conv="fused")
     check_int8_against_fused()
     check_train_step_against_cpu()
+    check_train_step_against_cpu(gn_conv="fused")
     check_ddpm_paint_against_cpu()
     sites = count_sites(make_task(full_cfg(bf16=True), "cpu", seed=0).unet)
     if sites != (ATTENTION_SITES, GROUPNORM_SITES):
@@ -1717,6 +1775,7 @@ def main() -> int:
                 "gn_silu_conv_q": gn_silu_conv3x3_q, "gn_silu_amax": gn_silu_amax}
     head_major = drive_head_major(counters)
     gn_conv_paths, _ = drive_gn_conv_requests(counters)
+    fused_training = drive_fused_train_steps(counters)
     with tempfile.TemporaryDirectory() as work:
         before = map_cache_counts()
         training = drive_training_path(counters, work)
@@ -1796,7 +1855,8 @@ def main() -> int:
         # B=128 C=64->64 128x128 bf16 with the residual: the costliest site shape
         entry("gn_silu_conv", "polyffusion_tpu_torch/ops/csrc/gn_silu_conv.cu",
               "polyffusion_tpu/ops/fused_gn_conv.py:36",
-              {"sampling_fused": gn_conv_paths["fused"]["gn_silu_conv"]}, gnc_rows, gnc_rows[1],
+              {"sampling_fused": gn_conv_paths["fused"]["gn_silu_conv"],
+               "training_fused": fused_training["gn_silu_conv"]}, gnc_rows, gnc_rows[1],
               [r for r in gnc_rows if "bfloat16" in r["shape"]]),
         entry("gn_silu_conv_q", "polyffusion_tpu_torch/ops/csrc/gn_silu_conv.cu",
               "polyffusion_tpu/ops/fused_gn_conv.py:36",

@@ -21,6 +21,11 @@ it runs the plain version. The bf16/fp32 functions are differentiable: the
 backward recomputes through the plain version, as JAX's custom VJP does. The
 int8 functions are for sampling only: their backward raises.
 
+The kernels read the weights packed tap-major, (9, O, L), each input's
+channels 16-aligned (``packed_weight``); the packed copy is made once per
+weight and version and kept beside it, so a sampling loop packs each weight
+once and a train step once per optimizer update.
+
 Launch counts: ``gn_silu_conv3x3.launches`` counts kernel 4's launches and
 ``gn_silu_conv3x3_q.launches`` kernel 5's convolutions, one- and two-input
 alike (``.two_input_launches`` the two-input ones); kernel 5's amax pass
@@ -31,7 +36,8 @@ alike (``.two_input_launches`` the two-input ones); kernel 5's amax pass
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -169,6 +175,34 @@ def _check(x, a, off, x2, a2, off2, w, b, residual, w_scale=None) -> None:
                              "C * H * W < 2^31")
 
 
+_PACKED: Dict[int, tuple] = {}  # id(w) -> (weakref to w, key, packed weight)
+
+
+def packed_weight(w: torch.Tensor, c1: Optional[int] = None) -> torch.Tensor:
+    """(O, C, 3, 3) weight -> the kernels' layout (9, O, L): element (tap, o,
+    c) is ``w[o, c, tap // 3, tap % 3]`` for the first input's channels c < C1
+    (``c1``, all of C for one input), and the second input's channel j lies at
+    c = C1 rounded up to 16, plus j, so that each input's rows start 16-byte
+    aligned for the weight map; L is rounded up to 16 as well, zeros elsewhere.
+    Cached for as long as w lives and is unchanged: a new storage or an
+    in-place update (an optimizer step, ``copy_``: each bumps ``w._version``)
+    packs it anew."""
+    o, c = w.shape[:2]
+    c1 = c if c1 is None else c1
+    key = (w.data_ptr(), w._version, w.dtype, w.device, tuple(w.shape), c1)
+    hit = _PACKED.get(id(w))
+    if hit is not None and hit[0]() is w and hit[1] == key:
+        return hit[2]
+    start2 = -(-c1 // 16) * 16
+    packed = w.new_zeros(9, o, -(-(start2 + c - c1) // 16) * 16)
+    taps = w.detach().permute(2, 3, 0, 1).reshape(9, o, c)
+    packed[:, :, :c1] = taps[:, :, :c1]
+    packed[:, :, start2:start2 + c - c1] = taps[:, :, c1:]
+    ident = id(w)
+    _PACKED[ident] = (weakref.ref(w, lambda _, i=ident: _PACKED.pop(i, None)), key, packed)
+    return packed
+
+
 def _part_args(x, a, off):
     if x is None:
         return [None, None, None, 0, 0]
@@ -185,14 +219,13 @@ def _launch(x, a, off, x2, a2, off2, w, b, residual, w_scale=None) -> torch.Tens
     res = residual.data_ptr() if residual is not None else None
     bias = [b.data_ptr(), int(b.dtype == torch.bfloat16), res, out.data_ptr()]
     shape = [bsz, h, wd, o, _DTYPE_CODES[x.dtype]]
-    # the kernels read the weights tap-major, (O, 3, 3, C): each (o, tap) row of a
-    # 32-channel chunk is contiguous
-    w = w.permute(0, 2, 3, 1).contiguous()
+    wp = packed_weight(w, x.shape[1])
+    weight = [wp.data_ptr(), wp.shape[2]]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     if w_scale is None:
-        fn = _kernel("gn_silu_conv", _PART_ARGS * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                     + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn = _kernel("gn_silu_conv", _PART_ARGS * 2 + [vp, ci, vp, ci, vp, vp] + [ci] * 5 + [vp])
         with torch.cuda.device(x.device):
-            err = fn(*parts, w.data_ptr(), *bias, *shape,
+            err = fn(*parts, *weight, *bias, *shape,
                      torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"gn_silu_conv launch failed: cudaError {err}")
@@ -200,10 +233,10 @@ def _launch(x, a, off, x2, a2, off2, w, b, residual, w_scale=None) -> torch.Tens
         gn_silu_conv3x3.two_input_launches += x2 is not None
         return out
     amax = gn_silu_amax(x, a, off, x2, a2, off2)
-    fn = _kernel("gn_silu_conv_q", _PART_ARGS * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn = _kernel("gn_silu_conv_q", _PART_ARGS * 2 + [vp, ci, vp, vp, ci, vp, vp, vp] + [ci] * 5
+                 + [vp])
     with torch.cuda.device(x.device):
-        err = fn(*parts, w.data_ptr(), w_scale.data_ptr(), *bias, amax.data_ptr(), *shape,
+        err = fn(*parts, *weight, w_scale.data_ptr(), *bias, amax.data_ptr(), *shape,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gn_silu_conv_q launch failed: cudaError {err}")

@@ -219,3 +219,99 @@ def test_wrapper_raises_on_inputs_it_does_not_take(bad):
     with pytest.raises(ValueError):
         P.gn_silu_conv3x3_concat(t["x"], t["a"], t["off"], t["x2"], t["a2"], t["off2"], t["w"],
                                  t["b"], t["res"])
+
+
+@pytest.mark.parametrize("c1,c2", [(40, 0), (40, 24)], ids=["one", "concat"])
+def test_packed_weight_layout(c1, c2):
+    """The kernels' weights: element (tap, o, c) of the packed tensor is
+    w[o, c, tap // 3, tap % 3] for the first input's channels, the second
+    input's start at C1 rounded up to 16, and the rest is zero."""
+    w = torch.from_numpy(np.random.default_rng(7).standard_normal((24, c1 + c2, 3, 3)))
+    packed = P.packed_weight(w, c1 if c2 else None)
+    start2 = -(-c1 // 16) * 16
+    assert packed.shape == (9, 24, -(-(start2 + c2) // 16) * 16) and packed.dtype == w.dtype
+    for tap in range(9):
+        for o in (0, 5, 23):
+            for c in range(c1 + c2):
+                col = c if c < c1 else start2 + c - c1
+                assert packed[tap, o, col] == w[o, c, tap // 3, tap % 3]
+    used = torch.zeros(packed.shape[2], dtype=torch.bool)
+    used[:c1] = True
+    used[start2:start2 + c2] = True
+    assert not packed[:, :, ~used].any()
+
+
+def test_packed_weight_cache_follows_in_place_updates():
+    """Packed once per weight and version: the same tensor while w is
+    unchanged; packed anew after an in-place update (which bumps
+    w._version), a new storage, or another split; never shared between two
+    weights."""
+    w = torch.randn(8, 32, 3, 3)
+    first = P.packed_weight(w)
+    assert P.packed_weight(w) is first
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = P.packed_weight(w)
+    assert again is not first
+    torch.testing.assert_close(again, 2.0 * first, rtol=0, atol=0)
+    assert P.packed_weight(w, 16) is not again
+    other = w.clone()
+    assert P.packed_weight(other) is not P.packed_weight(w, 16)
+    torch.testing.assert_close(P.packed_weight(other), again, rtol=0, atol=0)
+
+
+def test_fused_train_step_matches_jax_and_repacks(monkeypatch):
+    """One SGD step of the tiny UNet through the fused route on the CPU, against
+    the JAX package's fused route (its Pallas kernel in interpret mode, its
+    custom VJP): the loss and every parameter's gradient, then the eps after the
+    step; and the packed weights of each fused conv are rebuilt from the
+    updated weights, not kept from before the step."""
+    from test_torch_unet_gn_conv import TINY, UNET_ATOL, UNET_RTOL
+
+    from polyffusion_tpu.models.unet import UNetModel as JaxUNet
+    from polyffusion_tpu_torch.convert import unet_state_from_jax
+    from polyffusion_tpu_torch.models.unet import UNetModel
+
+    for name in ("POLYFF_FUSED_GN_CONV", "POLYFF_INT8_CONV", "POLYFF_INT8_XLA"):
+        monkeypatch.delenv(name, raising=False)
+    jm = JaxUNet(**TINY)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 2, 16, 16)).astype(np.float32)
+    t = np.array([5, 640], np.int32)
+    cond = rng.standard_normal((2, 3, TINY["d_cond"])).astype(np.float32)
+    co = rng.standard_normal((2, 2, 16, 16)).astype(np.float32)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(3), jnp.zeros((1, 16, 16, 2)),
+                              jnp.zeros((1,), jnp.int32), jnp.zeros((1, 3, TINY["d_cond"])))
+    params = jax.tree_util.tree_map(np.asarray, params["params"])
+    monkeypatch.setenv("POLYFF_FUSED_GN_CONV", "1")
+    lr = 1e-2
+    args = (jnp.asarray(x.transpose(0, 2, 3, 1)), jnp.asarray(t), jnp.asarray(cond))
+    apply = jax.jit(lambda p: jm.apply({"params": p}, *args))
+    loss_fn = jax.jit(lambda p: jnp.sum(apply(p) * jnp.asarray(co.transpose(0, 2, 3, 1))))
+    want_loss, grads = jax.value_and_grad(loss_fn)(params)
+    stepped = jax.tree_util.tree_map(lambda p, g: p - lr * g, params, grads)
+    want_after = np.asarray(apply(stepped)).transpose(0, 3, 1, 2)
+    want_grads = unet_state_from_jax(jax.tree_util.tree_map(np.asarray, grads))
+
+    tm = UNetModel(**TINY, gn_conv="fused")
+    tm.load_state_dict(unet_state_from_jax(params), strict=True)
+    inputs = (torch.from_numpy(x), torch.from_numpy(t.astype(np.int64)), torch.from_numpy(cond))
+    convs = [m.weight for m in tm.modules() if isinstance(m, torch.nn.Conv2d)
+             and m.kernel_size == (3, 3) and m.stride == (1, 1) and m.weight.shape[1] >= 32]
+    packed = [P.packed_weight(w) for w in convs]
+    loss = (tm(*inputs) * torch.from_numpy(co)).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), atol=GRAD_ATOL,
+                                   rtol=1e-4, err_msg=name)
+    torch.optim.SGD(tm.parameters(), lr=lr).step()
+    with torch.no_grad():
+        got_after = tm(*inputs)
+    np.testing.assert_allclose(got_after.numpy(), want_after, atol=UNET_ATOL, rtol=UNET_RTOL)
+    for w, before in zip(convs, packed):
+        now = P.packed_weight(w)
+        assert now is not before
+        torch.testing.assert_close(now[:, :, :w.shape[1]],
+                                   w.detach().permute(2, 3, 0, 1).reshape(9, *w.shape[:2]),
+                                   rtol=0, atol=0)

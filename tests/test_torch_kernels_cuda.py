@@ -372,8 +372,11 @@ def test_cuda_repaint_epilogue_refuses_strided_tensors():
     assert fused_repaint_epilogue.launches == before
 
 
-# (B, C1, C2, O, H, W): main-path sites, then ragged shapes the kernels mask
-# (W not a power of two, H short of a tile, channels and O off the 32/64 tiles)
+# (B, C1, C2, O, H, W): main-path sites, then shapes the kernels mask: O off
+# the 64 / 128 / 256 channel tiles (80, 48, 192, 136), channels off the 64- and
+# 128-channel chunks and C1 off 16 (96, 40 + 24, 72 + 40), H and W off the
+# 8-wide pixel tiles (12 x 20, 10 x 10, 24 x 40), W odd (rows not 16-byte
+# aligned: 9 x 13), batch 1
 GN_CONV_SHAPES = [
     (2, 64, 0, 64, 128, 128),
     (2, 128, 64, 64, 128, 128),
@@ -382,6 +385,10 @@ GN_CONV_SHAPES = [
     (3, 64, 32, 64, 8, 8),
     (2, 96, 0, 80, 12, 20),
     (2, 40, 24, 48, 10, 10),
+    (2, 64, 0, 192, 16, 16),
+    (2, 72, 40, 136, 24, 40),
+    (2, 64, 0, 64, 9, 13),
+    (1, 128, 0, 128, 32, 32),
 ]
 
 
