@@ -9,10 +9,16 @@ parallel), holds every kernel against its plain PyTorch version on the card
 (with a planted fault that must fail each limit; kernels 3 and 4's gradients
 through their autograd functions too; kernel 1's row log-sum-exp, the
 forward's second output, against its plain version; kernel 2 given that lse,
-as the train step gives it), logs the host microseconds per launch of
-kernels 1-3 (``profile_attention``) and the tensor-map cache's hits and
-misses on each main path, holds the full-width fp32 UNet eval (with the
-GroupNorm-SiLU-conv sites unfused and fused), one full-width fp32 train step
+as the train step gives it; kernel 6 at every GroupNorm shape of the train
+step, warm and cold, and with a second planted fault where a span takes a
+cluster; kernel 7 also behind the queued CFG combine that writes its eps,
+and behind a predecessor that lets it start early, where a planted copy
+that reads eps before its wait must fail),
+times an empty kernel (the launch floor), logs the host microseconds per
+launch of kernels 1-3 (``profile_attention``) and 7 and the tensor-map
+cache's hits and misses on each main path, holds the full-width fp32 UNet
+eval (with the GroupNorm-SiLU-conv sites unfused and fused), one full-width
+fp32 train step
 and a full-width fp32 DDPM RePaint run on the card against the CPU, and the
 full-width bf16 UNet's int8 eps against its fused eps (the train step also with the
 GroupNorm-SiLU-conv sites fused: kernel 4 forward, a backward through its
@@ -98,6 +104,16 @@ BWD_FP32_ATOL, BWD_FP32_RTOL = 1e-6, 0.0
 GN_BF16_ATOL, GN_BF16_RTOL = 1e-4, 2**-6
 GN_FP32_ATOL, GN_FP32_RTOL = 1e-6, 1e-6
 GN_PARAM_ATOL, GN_PARAM_RTOL = 1e-3, 1e-5
+# kernel 6's shapes: every GroupNorm backward of the bf16 train step at batch
+# 16, (C, H, W, sites per step), 56 in all; then fp32 (B, C, H, W) spans that
+# take a cluster of 2, of 4 and of 8 (the largest, 768 KB of x and dy)
+GN_TRAIN_SHAPES = [
+    (64, 128, 128, 8), (128, 128, 128, 2), (192, 128, 128, 1), (64, 64, 64, 1), (128, 64, 64, 6),
+    (192, 64, 64, 1), (256, 64, 64, 1), (384, 64, 64, 1), (128, 32, 32, 1), (256, 32, 32, 11),
+    (384, 32, 32, 1), (512, 32, 32, 2), (256, 16, 16, 17), (512, 16, 16, 3),
+]
+GN_FP32_SHAPES = [(4, 128, 64, 64), (4, 256, 64, 64), (2, 192, 128, 128)]
+L2_BYTES = 50 * 2**20  # the H100's L2: cold timings rotate through more than this
 # One fp32 train step, card against CPU: the loss and the gradients' norm to
 # fp32 reassociation over the whole UNet; each parameter's gradient in
 # relative norm (cuDNN's and the CPU's convolutions sum in other orders); the
@@ -115,6 +131,16 @@ STEP_PARAM_TIGHT, STEP_PARAM_SHARE = 1e-7, 1e-3
 # planted fault (the blend ignoring the mask) reads 3.4e5 x it.
 EPI_ATOL, EPI_RTOL = 1e-5, 1e-5
 EPI_STEPS = (999, 500, 0)
+# Kernel 7 behind a predecessor that lets it start early and writes its eps
+# EARLY_TRIGGER_NS later (1 ms, far longer than a launch from the host;
+# csrc/repaint_epilogue.cu:early_trigger_copy); the planted fault is a copy of
+# the kernel's source that loads its inputs before griddepcontrol.wait
+# (EPI_WAIT moved to after EPI_LOADS)
+EARLY_TRIGGER_NS = 1_000_000
+EPI_WAIT = ("  grid_dependency_wait();  // the previous kernel's output (eps) is complete from "
+            "here on\n")
+EPI_LOADS = "               vm = mask[i];\n"
+CLI_CFG_SCALE = 5.0  # the CFG scale of the CLI's requests: e_u + s (e_c - e_u) feeds kernel 7
 # A full-width fp32 DDPM RePaint run, card against CPU: the tolerance of the
 # port's sampler parity tests (tests/test_torch_slice.py, test_torch_ddpm.py)
 PAINT_ATOL, PAINT_RTOL = 2e-3, 1e-3
@@ -538,33 +564,119 @@ def map_cache_delta(before, label):
     return out
 
 
+def launch_floor():
+    """One launch of an empty kernel (``csrc/repaint_epilogue.cu:launch_floor``),
+    the way the port's kernels launch: ms per launch, timed in turns as every
+    kernel is. No kernel of the port can go below it."""
+    import ctypes
+
+    import torch
+
+    from polyffusion_tpu_torch.ops._build import load
+
+    fn = load("repaint_epilogue").launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def empty():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    ms = time_in_turns({"empty": empty})["empty"]
+    log(f"[kernel] launch floor (an empty kernel): {ms:.4f} ms per launch")
+    return ms
+
+
+def gn_bwd_inputs(g, b, c, hh, ww, dtype, groups=32, eps=1e-5):
+    """x, dy, the forward's statistics, and a bf16-representable gamma (its fp32
+    and bf16 forms hold the same values) with a beta."""
+    import torch
+
+    from polyffusion_tpu_torch.ops.gn_bwd import gn_primal
+
+    x = (torch.randn(b, c, hh, ww, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn(b, c, hh, ww, device="cuda", generator=g).to(dtype)
+    gamma = (torch.randn(c, device="cuda", generator=g) * 0.5 + 1.0).bfloat16().float()
+    beta = torch.randn(c, device="cuda", generator=g) * 0.1
+    _, mean_c, inv_c = gn_primal(x, gamma, beta, groups, eps)
+    return x, dy, mean_c, inv_c, gamma, beta
+
+
+def gn_bwd_bound(x, params_bytes):
+    """x and dy read once and dx written once, with the (B, C) statistics and
+    the (C,) parameters: ms at 3.35 TB/s."""
+    b, c = x.shape[:2]
+    nbytes = 3 * x.numel() * x.element_size() + 2 * b * c * 4 + 3 * c * params_bytes
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def cold_sets(x, dy, mean_c, inv_c, gamma):
+    """Distinct copies of x and dy (with dx, one call's traffic) whose total
+    exceeds the 50 MB L2 by a copy: taken in turn, every call finds its x and
+    dy cold, as a backward finds what its forward saved."""
+    per = 3 * x.numel() * x.element_size()
+    n = max(2, -(-L2_BYTES // per) + 1)
+    return [(x.clone(), dy.clone(), mean_c, inv_c, gamma) for _ in range(n)]
+
+
+def gn_bwd_resident_clusters():
+    """{(cluster size, dtype): clusters the card holds at once} for kernel 6 at
+    the most shared memory it takes (``gn_bwd_max_active_clusters``); raises
+    where one would not launch."""
+    import ctypes
+
+    from polyffusion_tpu_torch.ops._build import load
+
+    fn = load("gn_bwd").gn_bwd_max_active_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = {}
+    for k in (2, 4, 8):
+        for code, name in ((0, "float32"), (1, "bfloat16")):
+            n = ctypes.c_int(0)
+            err = fn(k, code, ctypes.byref(n))
+            if err != 0 or n.value <= 0:
+                raise AssertionError(f"gn_bwd: clusters of {k} CTAs ({name}, most shared memory) "
+                                     f"cannot be scheduled: cudaError {err}, {n.value} at once")
+            out[f"{k} {name}"] = n.value
+    log("[kernel] gn_bwd clusters resident at once (most shared memory): "
+        + ", ".join(f"{k} CTAs {v}" for k, v in out.items()))
+    return out
+
+
 def check_gn_bwd():
-    """GroupNorm backward kernel against its plain version (and the backward of
-    ``F.group_norm`` as a yardstick) at shapes of the train step. At each shape
-    the limit is also shown to catch a planted fault: the plain dx with the
-    S2 term left out."""
+    """GroupNorm backward kernel (kernel 6) against its plain version (and the
+    backward of ``F.group_norm`` as a yardstick) at every GroupNorm shape of
+    the bf16 train step (batch 16) and at fp32 shapes that take one CTA and
+    clusters of 2 and 4. Each shape is run as the train step runs it (bf16
+    gamma, dgamma and dbeta in bf16) and with fp32 parameters: dx within the
+    dtype's limit, the fp32 dgamma / dbeta within theirs, and the bf16 call
+    giving the same dx and exactly the fp32 dgamma / dbeta cast with ``.to``.
+    At each shape the limit is also shown to catch a planted fault: the plain
+    dx with the S2 term left out; where the span takes a cluster, a second:
+    the plain dx with S1 and S2 taken over only the first half of the span (a
+    cluster that lost its other CTAs' partials). Times warm (the same inputs
+    again) and cold (``cold_sets``)."""
+    import itertools
+
     import torch
     import torch.nn.functional as F
 
-    from polyffusion_tpu_torch.ops.gn_bwd import gn_bwd_reference, gn_primal, group_norm_bwd
+    from polyffusion_tpu_torch.ops.gn_bwd import gn_bwd_plan, gn_bwd_reference, group_norm_bwd
 
-    cases = [  # (B, C, H, W, dtype, atol, rtol)
-        (16, 64, 128, 128, torch.bfloat16, GN_BF16_ATOL, GN_BF16_RTOL),
-        (16, 192, 128, 128, torch.bfloat16, GN_BF16_ATOL, GN_BF16_RTOL),
-        (16, 256, 32, 32, torch.bfloat16, GN_BF16_ATOL, GN_BF16_RTOL),
-        (16, 512, 16, 16, torch.bfloat16, GN_BF16_ATOL, GN_BF16_RTOL),
-        (4, 128, 64, 64, torch.float32, GN_FP32_ATOL, GN_FP32_RTOL),
-    ]
+    gn_bwd_resident_clusters()
+    cases = [(16, c, hh, ww, torch.bfloat16, sites) for c, hh, ww, sites in GN_TRAIN_SHAPES]
+    cases += [(b, c, hh, ww, torch.float32, 0) for b, c, hh, ww in GN_FP32_SHAPES]
+    limits = {torch.bfloat16: (GN_BF16_ATOL, GN_BF16_RTOL), torch.float32: (GN_FP32_ATOL,
+                                                                           GN_FP32_RTOL)}
     groups, eps = 32, 1e-5
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for b, c, hh, ww, dtype, atol, rtol in cases:
-        x = (torch.randn(b, c, hh, ww, device="cuda", generator=g) * 2 + 0.5).to(dtype)
-        dy = torch.randn(b, c, hh, ww, device="cuda", generator=g).to(dtype)
-        gamma = torch.randn(c, device="cuda", generator=g) * 0.5 + 1.0
-        beta = torch.randn(c, device="cuda", generator=g) * 0.1
-        _, mean_c, inv_c = gn_primal(x, gamma, beta, groups, eps)
+    for b, c, hh, ww, dtype, sites in cases:
+        atol, rtol = limits[dtype]
+        x, dy, mean_c, inv_c, gamma, beta = gn_bwd_inputs(g, b, c, hh, ww, dtype, groups, eps)
+        plan = gn_bwd_plan(b, c, hh, ww, dtype, groups)
+        gamma_p = gamma.to(dtype)  # the weight as the step holds it: bf16 in a bf16 step
         got = group_norm_bwd(x, dy, mean_c, inv_c, gamma, groups)
+        got_p = group_norm_bwd(x, dy, mean_c, inv_c, gamma_p, groups, param_dtype=dtype)
         torch.cuda.synchronize()
         want = gn_bwd_reference(x, dy, mean_c, inv_c, gamma, groups)
         err = (got[0].float() - want[0].float()).abs().max().item()
@@ -572,39 +684,59 @@ def check_gn_bwd():
         param_err = max((x_ - y).abs().max().item() for x_, y in zip(got[1:], want[1:]))
         param_ratio = max(limit_ratio(x_, y, GN_PARAM_ATOL, GN_PARAM_RTOL)
                           for x_, y in zip(got[1:], want[1:]))
-        fault_ratio = limit_ratio(gn_dx_without_s2(x, dy, mean_c, inv_c, gamma, groups),
-                                  want[0], atol, rtol)
+        same_cast = torch.equal(got_p[0], got[0]) and all(
+            x_.dtype == dtype and torch.equal(x_, y.to(dtype)) for x_, y in zip(got_p[1:], got[1:]))
+        faults = {"without S2": gn_dx_without_s2(x, dy, mean_c, inv_c, gamma, groups)}
+        if plan.cluster > 1:
+            faults["half-span S1, S2"] = gn_dx_half_span(x, dy, mean_c, inv_c, gamma, groups)
+        fault_ratios = {k: limit_ratio(f, want[0], atol, rtol) for k, f in faults.items()}
+        shape = f"B={b} C={c} H={hh} W={ww} {str(dtype).split('.')[1]}"
         if not (ratio <= 1.0 and param_ratio <= 1.0):
-            raise AssertionError(f"gn_bwd B={b} C={c} H={hh} W={ww} {dtype}: dx max_abs_err "
-                                 f"{err}, {ratio:.3g} x the limit; dgamma/dbeta {param_ratio:.3g} x")
-        if not fault_ratio > 1.0:
-            raise AssertionError(f"the limit at C={c} H={hh} {dtype} does not catch a dx without "
-                                 f"S2 ({fault_ratio:.3g} x the limit)")
+            raise AssertionError(f"gn_bwd {shape}: dx max_abs_err {err}, {ratio:.3g} x the limit; "
+                                 f"dgamma/dbeta {param_ratio:.3g} x")
+        if not same_cast:
+            raise AssertionError(f"gn_bwd {shape}: with {dtype} parameters dx or dgamma/dbeta "
+                                 f"differ from the fp32 call's (cast with .to)")
+        for k, fr in fault_ratios.items():
+            if not fr > 1.0:
+                raise AssertionError(f"the limit at {shape} does not catch a dx {k} ({fr:.3g} x "
+                                     f"the limit)")
         xl = x.detach().requires_grad_()
         wl = gamma.to(dtype).requires_grad_()
         bl = beta.to(dtype).requires_grad_()
         y = F.group_norm(xl, groups, wl, bl, eps)
         ms = time_in_turns({
-            "kernel": lambda: group_norm_bwd(x, dy, mean_c, inv_c, gamma, groups),
+            "kernel": lambda: group_norm_bwd(x, dy, mean_c, inv_c, gamma_p, groups,
+                                             param_dtype=dtype),
             "plain": lambda: gn_bwd_reference(x, dy, mean_c, inv_c, gamma, groups),
             "library": lambda: torch.autograd.grad(y, (xl, wl, bl), dy, retain_graph=True),
         })
-        dname = str(dtype).split(".")[1]
-        bound = 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-        row = dict(shape=f"B={b} C={c} H={hh} W={ww} {dname}", max_abs_err=err, atol=atol,
-                   rtol=rtol, limit_ratio=ratio, fault_limit_ratio=fault_ratio,
+        sets = cold_sets(x, dy, mean_c, inv_c, gamma_p)
+        turn = itertools.cycle(sets)
+        cold_ms = time_in_turns({
+            "cold": lambda: group_norm_bwd(*next(turn), groups, param_dtype=dtype)})["cold"]
+        bound = gn_bwd_bound(x, x.element_size())
+        row = dict(shape=shape, sites_per_step=sites, cluster=plan.cluster, share=plan.share,
+                   max_abs_err=err, atol=atol, rtol=rtol, limit_ratio=ratio,
+                   fault_limit_ratio=min(fault_ratios.values()), fault_limit_ratios=fault_ratios,
                    param_max_abs_err=param_err, param_limit_ratio=param_ratio,
                    want_abs_max=want[0].float().abs().max().item(),
-                   ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
-                   bound_ms=bound, bound_by="bytes")
-        log(f"[kernel] gn_bwd {row['shape']}: dx max_abs_err {err:.3g} (|want| max "
-            f"{row['want_abs_max']:.3g}), {ratio:.3g} x the limit (atol {atol}, rtol {rtol:.3g}; "
-            f"without S2: {fault_ratio:.3g} x); dgamma/dbeta max_abs_err {param_err:.3g}, "
-            f"{param_ratio:.3g} x (atol {GN_PARAM_ATOL}, rtol {GN_PARAM_RTOL})  "
-            f"kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
+                   ms=ms["kernel"], cold_ms=cold_ms, cold_sets=len(sets), plain_ms=ms["plain"],
+                   library_ms=ms["library"], bound_ms=bound, bound_by="bytes")
+        log(f"[kernel] gn_bwd {shape} ({sites} per step; cluster {plan.cluster}): dx max_abs_err "
+            f"{err:.3g} (|want| max {row['want_abs_max']:.3g}), {ratio:.3g} x the limit (atol "
+            f"{atol}, rtol {rtol:.3g}; "
+            + ", ".join(f"{k}: {v:.3g} x" for k, v in fault_ratios.items())
+            + f"); dgamma/dbeta max_abs_err {param_err:.3g}, {param_ratio:.3g} x (atol "
+            f"{GN_PARAM_ATOL}, rtol {GN_PARAM_RTOL}); {dtype} parameters the fp32 ones cast  "
+            f"kernel {ms['kernel']:.4f} ms (cold {cold_ms:.4f})  plain {ms['plain']:.4f} ms  "
             f"F.group_norm bwd {ms['library']:.4f} ms  bound {bound:.4f} ms (bytes)")
         rows.append(row)
-        del x, dy, got, want, xl, y
+        del x, dy, got, got_p, want, xl, y, sets, faults
+    step = {k: sum(r["sites_per_step"] * r[k] for r in rows)
+            for k in ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms")}
+    log("[kernel] gn_bwd over the train step's 56 GroupNorm backwards (summed over the sites): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in step.items()))
     return rows
 
 
@@ -619,13 +751,126 @@ def gn_dx_without_s2(x, dy, mean_c, inv_c, gamma, groups):
     return (inv4 * (dyg - s1)).to(x.dtype)
 
 
+def gn_dx_half_span(x, dy, mean_c, inv_c, gamma, groups):
+    """The plain dx with S1 and S2 summed over only the first half of each
+    (item, group) span: the second planted fault of ``check_gn_bwd``, what a
+    cluster would give that kept its first CTA's partials and lost the rest."""
+    b, c = x.shape[:2]
+    hw = x[0, 0].numel()
+    n = hw * (c // groups)
+    dyg = dy.float() * gamma[None, :, None, None]
+    xh = (x.float() - mean_c[:, :, None, None]) * inv_c[:, :, None, None]
+
+    def first_half(v):  # (B, C, H, W) -> its sum over each span's first half / N, per channel
+        s = v.reshape(b, groups, n)[:, :, : n // 2].sum(-1) / n
+        return s.repeat_interleave(c // groups, dim=1)[:, :, None, None]
+
+    s1, s2 = first_half(dyg), first_half(dyg * xh)
+    return (inv_c[:, :, None, None] * (dyg - (s1 + xh * s2))).to(x.dtype)
+
+
+def build_copy(name: str, text: str):
+    """A copy of a ``csrc/`` source, changed, compiled as the package's
+    sources are (into the package's build directory) and loaded."""
+    import ctypes
+
+    from polyffusion_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(_build.BUILD_DIR, f"{name}.cu")
+    with open(cu, "w") as f:
+        f.write(text)
+    lib = cu[:-3] + ".so"
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, "-o", lib,
+                          cu], capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{out.stdout}{out.stderr}")
+    return ctypes.CDLL(lib)
+
+
+def epilogue_reading_eps_early():
+    """Kernel 7's source with its loads moved ahead of griddepcontrol.wait:
+    the planted fault that ``epilogue_behind_early_trigger`` must catch."""
+    import ctypes
+
+    from polyffusion_tpu_torch.ops._build import CSRC_DIR
+
+    text = open(os.path.join(CSRC_DIR, "repaint_epilogue.cu")).read()
+    if EPI_WAIT not in text or EPI_LOADS not in text:
+        raise AssertionError("repaint_epilogue.cu no longer has the wait and loads the planted "
+                             "copy moves")
+    text = text.replace(EPI_WAIT, "").replace(EPI_LOADS, EPI_LOADS + "  grid_dependency_wait();\n")
+    lib = build_copy("repaint_epilogue_eps_early", text)
+    fn = lib.repaint_epilogue
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_float] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def epilogue_behind_early_trigger(planted, x, eps, p_noise, orig, q_noise, mask, scalars):
+    """Limit ratios of kernel 7 (``"kernel"``) and of ``planted`` (the copy
+    that loads eps before its wait) against the plain version, each launched
+    right behind ``early_trigger_copy``: a predecessor that lets it start at
+    once and writes its eps (into a buffer of zeros) EARLY_TRIGGER_NS later.
+    The kernel must meet the limit and the copy fail it: a check behind
+    PyTorch's kernels, which never let their dependents start early, could
+    not tell the two apart."""
+    import ctypes
+
+    import torch
+
+    from polyffusion_tpu_torch.ops._build import load
+    from polyffusion_tpu_torch.ops.repaint_epilogue import (
+        fused_repaint_epilogue,
+        repaint_epilogue_reference,
+    )
+
+    copy = load("repaint_epilogue").early_trigger_copy
+    copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
+                     ctypes.c_void_p]
+    copy.restype = ctypes.c_int
+    want = repaint_epilogue_reference(x, eps, p_noise, orig, q_noise, mask, scalars)
+
+    def planted_call(e):
+        out = torch.empty_like(x)
+        err = planted(x.data_ptr(), e.data_ptr(), p_noise.data_ptr(), orig.data_ptr(),
+                      q_noise.data_ptr(), mask.data_ptr(), out.data_ptr(), x.numel(), *scalars,
+                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the planted epilogue did not launch: cudaError {err}")
+        return out
+
+    planted_call(eps)  # the first launch loads the copy's module: not behind the predecessor
+    ratios = {}
+    for name, fn in (("kernel", lambda e: fused_repaint_epilogue(x, e, p_noise, orig, q_noise,
+                                                                 mask, scalars)),
+                     ("planted", planted_call)):
+        late = torch.zeros_like(eps)
+        torch.cuda.synchronize()
+        err = copy(eps.data_ptr(), late.data_ptr(), eps.numel(), EARLY_TRIGGER_NS,
+                   torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"early_trigger_copy did not launch: cudaError {err}")
+        got = fn(late)
+        torch.cuda.synchronize()
+        ratios[name] = limit_ratio(got, want, EPI_ATOL, EPI_RTOL)
+    return ratios
+
+
 def check_repaint_epilogue():
     """The RePaint epilogue kernel against its plain version at request A's
     shape (batch 2), batch 4 and a full batch of 64, with the scalars of the
     first, a middle and the last of the preset's 1000 steps. At each the limit
     is also shown to catch a planted fault: the blend ignoring the mask (the
-    unknown region's update everywhere). No single PyTorch call computes this
-    function, so the plain composition is the only yardstick."""
+    unknown region's update everywhere). Then, as the sampler runs it, behind
+    the CFG combine that writes its eps, queued while the card is still busy:
+    the kernel starts before eps is complete (programmatic dependent launch)
+    and must wait for it; and behind a predecessor that lets it start early
+    (``epilogue_behind_early_trigger``), where a planted copy that reads eps
+    before its wait must fail the limit. No single PyTorch call computes this function, so
+    the plain composition is the only yardstick. Also times the pair (the
+    combine, then the kernel) and the wrapper's host microseconds per call."""
     import torch
 
     from polyffusion_tpu_torch.diffusion.sampler import _epilogue_scalars
@@ -634,14 +879,17 @@ def check_repaint_epilogue():
         fused_repaint_epilogue,
         repaint_epilogue_reference,
     )
+    from polyffusion_tpu_torch.profile_attention import _host_and_device
 
     cfg = full_cfg(bf16=False)
     sched = make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end)
     g = torch.Generator(device="cuda").manual_seed(4)
+    planted = epilogue_reading_eps_early()
     rows = []
     for b in (2, 4, 64):
         shape = (b, 2, 128, 128)
-        x, eps, p_noise, q_noise = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+        x, eps, p_noise, q_noise, e_u, e_c = (torch.randn(shape, device="cuda", generator=g)
+                                              for _ in range(6))
         orig = (torch.rand(shape, device="cuda", generator=g) < 0.05).float()
         mask = (torch.rand(shape, device="cuda", generator=g) < 0.5).float()
         tensors = (x, eps, p_noise, orig, q_noise, mask)
@@ -655,29 +903,58 @@ def check_repaint_epilogue():
             err = max(err, (got - want).abs().max().item())
             ratio = max(ratio, limit_ratio(got, want, EPI_ATOL, EPI_RTOL))
             fault_ratio = min(fault_ratio, limit_ratio(fault, want, EPI_ATOL, EPI_RTOL))
-        if not ratio <= 1.0:
+        # behind its predecessor: the combine's kernels queued behind 5 ms of
+        # device work, the epilogue right after the one that writes eps
+        scalars = _epilogue_scalars(sched, 500)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(10_000_000)
+        eps_q = e_u + CLI_CFG_SCALE * (e_c - e_u)
+        got = fused_repaint_epilogue(x, eps_q, p_noise, orig, q_noise, mask, scalars)
+        torch.cuda.synchronize()
+        want = repaint_epilogue_reference(x, eps_q, p_noise, orig, q_noise, mask, scalars)
+        queued_err = (got - want).abs().max().item()
+        queued_ratio = limit_ratio(got, want, EPI_ATOL, EPI_RTOL)
+        early = epilogue_behind_early_trigger(planted, x, eps_q, p_noise, orig, q_noise, mask,
+                                              scalars)
+        if not max(ratio, queued_ratio, early["kernel"]) <= 1.0:
             raise AssertionError(f"repaint_epilogue B={b}: max_abs_err {err}, {ratio:.3g} x the "
-                                 f"limit (atol {EPI_ATOL}, rtol {EPI_RTOL})")
+                                 f"limit; behind its predecessor {queued_ratio:.3g} x, behind "
+                                 f"one that lets it start early {early['kernel']:.3g} x (atol "
+                                 f"{EPI_ATOL}, rtol {EPI_RTOL})")
+        if not early["planted"] > 1.0:
+            raise AssertionError(f"the check behind an early-triggering predecessor at B={b} does "
+                                 f"not catch a copy that reads eps before its wait "
+                                 f"({early['planted']:.3g} x the limit)")
         if not fault_ratio > 1.0:
             raise AssertionError(f"the limit at B={b} does not catch a blend that ignores the "
                                  f"mask ({fault_ratio:.3g} x the limit)")
-        scalars = _epilogue_scalars(sched, 500)
         ms = time_in_turns({
             "kernel": lambda: fused_repaint_epilogue(*tensors, scalars),
             "plain": lambda: repaint_epilogue_reference(*tensors, scalars),
+            "pair": lambda: fused_repaint_epilogue(x, e_u + CLI_CFG_SCALE * (e_c - e_u), p_noise,
+                                                   orig, q_noise, mask, scalars),
+            "combine": lambda: e_u + CLI_CFG_SCALE * (e_c - e_u),
         })
+        host_us, _ = _host_and_device(lambda: fused_repaint_epilogue(*tensors, scalars))
         # six fp32 tensors read once, one written once
         bound = 7 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-        row = dict(shape=f"B={b} C=2 H=128 W=128 float32", max_abs_err=err, atol=EPI_ATOL,
-                   rtol=EPI_RTOL, limit_ratio=ratio, fault_limit_ratio=fault_ratio,
-                   ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
+        row = dict(shape=f"B={b} C=2 H=128 W=128 float32", max_abs_err=max(err, queued_err),
+                   atol=EPI_ATOL, rtol=EPI_RTOL, limit_ratio=ratio,
+                   queued_limit_ratio=queued_ratio, early_limit_ratio=early["kernel"],
+                   early_fault_limit_ratio=early["planted"], fault_limit_ratio=fault_ratio,
+                   ms=ms["kernel"], plain_ms=ms["plain"], pair_ms=ms["pair"],
+                   combine_ms=ms["combine"], host_us_per_call=host_us, library_ms=None,
                    bound_ms=bound, bound_by="bytes")
         log(f"[kernel] repaint_epilogue {row['shape']}, steps {EPI_STEPS}: max_abs_err {err:.3g}, "
-            f"{ratio:.3g} x the limit (atol {EPI_ATOL}, rtol {EPI_RTOL}; blend ignoring the mask: "
-            f"{fault_ratio:.3g} x)  kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
-            f"bound {bound:.4f} ms (bytes)")
+            f"{ratio:.3g} x the limit (atol {EPI_ATOL}, rtol {EPI_RTOL}; behind the queued CFG "
+            f"combine {queued_ratio:.3g} x; behind an early trigger {early['kernel']:.3g} x, "
+            f"a copy reading eps before its wait {early['planted']:.3g} x; blend ignoring the "
+            f"mask: {fault_ratio:.3g} x)  "
+            f"kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  combine + kernel "
+            f"{ms['pair']:.4f} ms (combine alone {ms['combine']:.4f})  host {host_us:.2f} us per "
+            f"call  bound {bound:.4f} ms (bytes)")
         rows.append(row)
-        del tensors, x, eps, p_noise, q_noise, orig, mask, got, want, fault
+        del tensors, x, eps, p_noise, q_noise, orig, mask, got, want, fault, e_u, e_c, eps_q
     return rows
 
 
@@ -1746,6 +2023,7 @@ def main() -> int:
     hm_rows = check_head_major_attention()
     gn_rows = check_gn_bwd()
     epi_rows = check_repaint_epilogue()
+    floor_ms = launch_floor()
     gnc_rows = check_gn_conv(quantized=False)
     gnq_rows = check_gn_conv(quantized=True)
     check_gn_conv_gradient()
@@ -1820,7 +2098,6 @@ def main() -> int:
     fwd_bf16 = [r for r in rows if r["shape"].endswith("bfloat16")]
     bf16 = [r for r in bwd_rows if r["shape"].endswith("bfloat16")]
     hm_bf16 = [r for r in hm_rows if r["shape"].endswith("bfloat16")]
-    gn_bf16 = [r for r in gn_rows if r["shape"].endswith("bfloat16")]
     kernels = [
         # B=128 T=1024 bf16: the sampling path's dominant shape
         entry("packed_attention", "polyffusion_tpu_torch/ops/csrc/packed_attention.cu",
@@ -1846,7 +2123,7 @@ def main() -> int:
         entry("gn_bwd", "polyffusion_tpu_torch/ops/csrc/gn_bwd.cu",
               "polyffusion_tpu/ops/gn_bwd.py:66",
               {"training": training["gn_bwd"], "training_mix2": mix2_training["gn_bwd"]},
-              gn_rows, gn_bf16[0], gn_bf16),
+              gn_rows, gn_rows[0], gn_rows),
         # B=2 2x128x128 fp32: request A's sampler batch
         entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",
               "polyffusion_tpu/ops/pallas_sampler.py:33",
@@ -1869,6 +2146,8 @@ def main() -> int:
         "sampling_int8": gn_conv_paths["int8"]["gn_silu_amax"],
         "cli_int8": cli["int8"]["gn_silu_amax"]}
     kernels[-1]["amax_pass_ms"] = gnq_rows[1]["amax_pass_ms"]
+    for k in kernels[3:5]:  # kernels 6 and 7: below this no launch goes
+        k["launch_floor_ms"] = floor_ms
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

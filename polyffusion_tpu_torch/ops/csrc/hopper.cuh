@@ -1,7 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the bf16 attention kernels and the
-// fused GroupNorm-SiLU-conv3x3: mbarriers, TMA tile loads, wgmma shared-memory
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers, TMA
+// tile loads and 1-D bulk copies, thread-block clusters (ranks, cluster
+// barriers, distributed shared-memory loads) and programmatic dependent launch
+// for the GroupNorm backward and the RePaint epilogue; wgmma shared-memory
 // descriptors, the m64n64k16 bf16 products, the K-major bf16 and s8 products
-// of width 64-256, and the host-side tensor maps.
+// of width 64-256, and the host-side tensor maps for the bf16 attention kernels
+// and the fused GroupNorm-SiLU-conv3x3.
 //
 // Every bf16 tile in shared memory is a stack of "chunks" of 64 rows x 64
 // columns (128 bytes a row), 1024-byte aligned, in the 128-byte swizzle that
@@ -101,6 +104,65 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// -- thread-block clusters ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of every CTA of the cluster arrives (release: its earlier
+// shared-memory writes become visible to the cluster) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// ... and waits for all the others' arrivals (acquire).
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float at ``p`` in the shared memory of the cluster's CTA ``rank``
+// (``p`` is this CTA's address of the same variable).
+__device__ __forceinline__ float ld_cluster_f32(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// -- programmatic dependent launch -------------------------------------------------
+
+// Waits until the grids this one depends on (the kernel launched before it on
+// the stream, when it was launched with programmatic stream serialization) have
+// completed and their writes are visible. A no-op in a grid launched without it.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Lets the grid launched after this one with programmatic stream
+// serialization start once every CTA of this grid has called it (or exited).
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// The device's nanosecond clock.
+__device__ __forceinline__ uint64_t global_timer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
 // -- wgmma -----------------------------------------------------------------------

@@ -36,27 +36,48 @@ def repaint_epilogue_reference(x, eps, p_noise, orig, q_noise, mask, scalars: Se
     return x_known * mask + x_unknown * (1.0 - mask)
 
 
-def _check(tensors, scalars) -> None:
-    names = ("x", "eps", "p_noise", "orig", "q_noise", "mask")
+_NAMES = ("x", "eps", "p_noise", "orig", "q_noise", "mask")
+
+
+def _check(tensors, scalars):
+    """Raises ``ValueError`` on what the wrapper does not take; returns the six
+    tensors' addresses on a CUDA device. One pass over the tensors: a
+    host-bound sampler pays for these checks once per step."""
     x = tensors[0]
-    if any(t.shape != x.shape for t in tensors):
-        raise ValueError("the six tensors must share one shape, got "
-                         + ", ".join(f"{n} {tuple(t.shape)}" for n, t in zip(names, tensors)))
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError("the six tensors must be float32, got "
-                         + ", ".join(f"{n} {t.dtype}" for n, t in zip(names, tensors)))
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("the six tensors must lie on one device")
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"fused_repaint_epilogue runs on cuda or cpu, not {x.device}")
+    shape, device = x.shape, x.device
+    ptrs = []
+    for t in tensors:
+        if t.shape != shape:
+            raise ValueError("the six tensors must share one shape, got " + ", ".join(
+                f"{n} {tuple(u.shape)}" for n, u in zip(_NAMES, tensors)))
+        if t.dtype is not torch.float32:
+            raise ValueError("the six tensors must be float32, got " + ", ".join(
+                f"{n} {u.dtype}" for n, u in zip(_NAMES, tensors)))
+        if t.device != device:
+            raise ValueError("the six tensors must lie on one device")
+        if device.type == "cuda":
+            ptrs.append(t.data_ptr())
+            if ptrs[-1] % 16 or not t.is_contiguous():
+                raise ValueError(f"{_NAMES[len(ptrs) - 1]} must be contiguous and 16-byte aligned")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_repaint_epilogue runs on cuda or cpu, not {device}")
     if len(scalars) != 7:
         raise ValueError(f"expected 7 scalars a..g, got {len(scalars)}")
-    if x.device.type == "cuda":
-        if x.numel() % 4:
-            raise ValueError(f"{x.numel()} elements: the kernel takes a multiple of 4")
-        for n, t in zip(names, tensors):
-            if not t.is_contiguous() or t.data_ptr() % 16:
-                raise ValueError(f"{n} must be contiguous and 16-byte aligned")
+    if device.type == "cuda" and x.numel() % 4:
+        raise ValueError(f"{x.numel()} elements: the kernel takes a multiple of 4")
+    return ptrs
+
+
+def _launch_entry():
+    """The C entry point with its argument types set."""
+    from ._build import load
+
+    fn = load("repaint_epilogue").repaint_epilogue
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_float] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _entry.append(fn)
+    return fn
 
 
 def fused_repaint_epilogue(
@@ -72,24 +93,19 @@ def fused_repaint_epilogue(
     same for all six) and the scalars a..g as host floats.
 
     On a CUDA tensor this launches the kernel (and raises if it cannot); on a
-    CPU tensor it runs ``repaint_epilogue_reference``."""
+    CPU tensor it runs ``repaint_epilogue_reference``. The kernel may start
+    while the kernel before it on the stream finishes (programmatic dependent
+    launch); it reads its inputs only once that one is complete."""
     tensors = (x, eps, p_noise, orig, q_noise, mask)
-    _check(tensors, scalars)
-    if x.device.type == "cpu":
+    ptrs = _check(tensors, scalars)
+    if not x.is_cuda:
         return repaint_epilogue_reference(*tensors, scalars)
-    if not _entry:
-        from ._build import load
-
-        fn = load("repaint_epilogue").repaint_epilogue
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_float] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _entry.append(fn)
+    fn = _entry[0] if _entry else _launch_entry()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _entry[0](*(t.data_ptr() for t in tensors), out.data_ptr(), x.numel(),
-                        *(float(s) for s in scalars),
-                        torch.cuda.current_stream(x.device).cuda_stream)
+    dev = x.get_device()
+    with torch.cuda.device(dev):  # the raw stream handle: a Stream object costs host time
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        err = fn(*ptrs, out.data_ptr(), x.numel(), *scalars, stream)
     if err != 0:
         raise RuntimeError(f"repaint_epilogue launch failed: cudaError {err}")
     fused_repaint_epilogue.launches += 1

@@ -5,20 +5,24 @@ train steps in bf16 (fp32 masters) at the preset's batch 16, on one GPU.
 
 Prints the step's time from CUDA events and on the host clock, steps per
 second and peak device memory, then a ``torch.profiler`` breakdown of further
-steps: device time per kernel class and the top kernels, and the share of the
-window in which the device was idle. Weights and the batch are random (seeded).
+steps: device time per kernel class and the top kernels, the share of the
+window in which the device was idle, and last one JSON line with the device
+kernels launched per step and the GroupNorm backward kernel's (kernel 6) ms
+and launches per step. Weights and the batch are random (seeded).
 """
 
 from __future__ import annotations
 
+import json
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .config import load_params
 from .models import ChordEncoder, init_weights_
-from .profile_unet import breakdown
+from .profile_unet import NOT_KERNELS, breakdown
 from .tasks import SDFTask
 from .train import create_state, make_train_step
 
@@ -68,7 +72,27 @@ def main() -> None:
         t0 = time.perf_counter()
         run(PROFILED_STEPS)
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    breakdown(prof, prof_wall_ms, PROFILED_STEPS, "step")
+    busy_ms = breakdown(prof, prof_wall_ms, PROFILED_STEPS, "step")
+    print(json.dumps(dict(card=torch.cuda.get_device_name(0), step_ms=step_ms, wall_ms=wall_ms,
+                          busy_ms_per_step=busy_ms / PROFILED_STEPS,
+                          **kernel_launches(prof, PROFILED_STEPS))))
+
+
+def kernel_launches(prof, steps: int) -> dict:
+    """Device kernels launched per step in a profiled window of ``steps``
+    steps, and the GroupNorm backward kernel's (``gn_bwd`` in its name) launches
+    and device ms per step."""
+    launches, gn_launches, gn_us = 0, 0, 0.0
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA or evt.is_user_annotation
+                or evt.self_device_time_total <= 0 or evt.key in NOT_KERNELS):
+            continue
+        launches += evt.count
+        if "gn_bwd" in evt.key:
+            gn_launches += evt.count
+            gn_us += evt.self_device_time_total
+    return dict(kernels_per_step=launches / steps, gn_bwd_launches_per_step=gn_launches / steps,
+                gn_bwd_ms_per_step=gn_us / 1e3 / steps)
 
 
 if __name__ == "__main__":

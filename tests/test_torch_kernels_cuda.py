@@ -35,7 +35,12 @@ from polyffusion_tpu_torch.ops.fused_gn_conv import (
     gn_silu_conv3x3_reference,
     quantize_conv_kernel,
 )
-from polyffusion_tpu_torch.ops.gn_bwd import gn_bwd_reference, gn_primal, group_norm_bwd
+from polyffusion_tpu_torch.ops.gn_bwd import (
+    gn_bwd_plan,
+    gn_bwd_reference,
+    gn_primal,
+    group_norm_bwd,
+)
 from polyffusion_tpu_torch.ops.repaint_epilogue import (
     fused_repaint_epilogue,
     repaint_epilogue_reference,
@@ -334,6 +339,139 @@ def test_cuda_gn_bwd_matches_plain(b, c, hh, ww, dtype):
     assert _within(got[0], want[0], *GN_LIMITS[dtype])
     for x_, y in zip(got[1:], want[1:]):
         assert _within(x_, y, *GN_PARAM_LIMIT)
+
+
+def _gn_bwd_inputs(g, b, c, hh, ww, dtype):
+    """x, dy and the forward's statistics; gamma is bf16-representable, so that
+    its fp32 and bf16 forms hold the same values."""
+    x = (torch.randn(b, c, hh, ww, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn(b, c, hh, ww, device="cuda", generator=g).to(dtype)
+    gamma = (torch.randn(c, device="cuda", generator=g) * 0.5 + 1.0).bfloat16().float()
+    beta = torch.randn(c, device="cuda", generator=g) * 0.1
+    _, mean_c, inv_c = gn_primal(x, gamma, beta, 32, 1e-5)
+    return x, dy, mean_c, inv_c, gamma
+
+
+# (B, C, H, W, dtype, CTAs a cluster): each cluster size, with shares that
+# split a channel (2.5, 1.5, 3.25, 0.75, 0.75, 0.625 channels a CTA); the fp32
+# spans at 8 are over the 64 KB budget (96, 80 and 128 KB a CTA)
+GN_CLUSTER_SHAPES = [
+    (2, 64, 64, 64, torch.bfloat16, 1),
+    (2, 160, 64, 64, torch.bfloat16, 2),
+    (2, 96, 64, 64, torch.float32, 2),
+    (2, 416, 64, 64, torch.bfloat16, 4),
+    (2, 96, 96, 96, torch.float32, 4),
+    (2, 192, 128, 128, torch.bfloat16, 8),
+    (2, 192, 128, 128, torch.float32, 8),
+    (2, 160, 128, 128, torch.float32, 8),
+    (1, 1024, 64, 64, torch.float32, 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,hh,ww,dtype,k", GN_CLUSTER_SHAPES)
+def test_cuda_gn_bwd_cluster_shapes_match_plain(b, c, hh, ww, dtype, k):
+    """Kernel 6 where a span takes one CTA or a cluster of 2, 4 or 8: one
+    launch per call; dx, and dgamma / dbeta in fp32, within the limits; in
+    bf16 (a bf16 gamma) exactly the fp32 results cast with ``.to``."""
+    g = _card()
+    assert gn_bwd_plan(b, c, hh, ww, dtype, 32).cluster == k
+    x, dy, mean_c, inv_c, gamma = _gn_bwd_inputs(g, b, c, hh, ww, dtype)
+    before = group_norm_bwd.launches
+    got = group_norm_bwd(x, dy, mean_c, inv_c, gamma, 32)
+    got16 = group_norm_bwd(x, dy, mean_c, inv_c, gamma.bfloat16(), 32, param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert group_norm_bwd.launches == before + 2
+    want = gn_bwd_reference(x, dy, mean_c, inv_c, gamma, 32)
+    assert _within(got[0], want[0], *GN_LIMITS[dtype])
+    for x_, y in zip(got[1:], want[1:]):
+        assert x_.dtype == torch.float32 and x_.shape == (c,)
+        assert _within(x_, y, *GN_PARAM_LIMIT)
+    assert torch.equal(got16[0], got[0])
+    for x_, y in zip(got16[1:], got[1:]):
+        assert x_.dtype == torch.bfloat16 and torch.equal(x_, y.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_gn_bwd_is_deterministic():
+    """The in-kernel sum over B adds the items in a fixed order: two calls
+    give the same bits."""
+    g = _card()
+    x, dy, mean_c, inv_c, gamma = _gn_bwd_inputs(g, 16, 192, 64, 64, torch.bfloat16)
+    a = group_norm_bwd(x, dy, mean_c, inv_c, gamma, 32)
+    b = group_norm_bwd(x, dy, mean_c, inv_c, gamma, 32)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_gn_bwd_refuses_a_span_no_cluster_holds():
+    """64 channels of 128 x 128 fp32 a group (8 MB of x and dy) exceed eight
+    CTAs' shared memory: the wrapper raises and launches nothing."""
+    _card()
+    x = torch.zeros(1, 2048, 128, 128, device="cuda")
+    stats = torch.zeros(1, 2048, device="cuda")
+    before = group_norm_bwd.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        group_norm_bwd(x, x, stats, stats, torch.ones(2048, device="cuda"), 32)
+    assert group_norm_bwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 64])
+def test_cuda_repaint_epilogue_after_queued_predecessor(b):
+    """Kernel 7 launched right behind the kernel that writes its eps (the CFG
+    combine of ``make_eps_fn``) while the card is still busy, so that it is
+    queued before eps exists: it must wait for eps (programmatic dependent
+    launch) and match the plain version on the finished eps."""
+    g = _card()
+    cfg = load_params("sdf_chd8bar")
+    scalars = _epilogue_scalars(make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end), 500)
+    shape = (b, 2, 128, 128)
+    x, e_u, e_c, p_noise, q_noise = (torch.randn(shape, device="cuda", generator=g)
+                                     for _ in range(5))
+    orig = (torch.rand(shape, device="cuda", generator=g) < 0.05).float()
+    mask = (torch.rand(shape, device="cuda", generator=g) < 0.5).float()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # the card stays busy while the host queues
+    eps = e_u + 5.0 * (e_c - e_u)
+    got = fused_repaint_epilogue(x, eps, p_noise, orig, q_noise, mask, scalars)
+    torch.cuda.synchronize()
+    want = repaint_epilogue_reference(x, eps, p_noise, orig, q_noise, mask, scalars)
+    assert _within(got, want, *EPI_LIMIT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 64])
+def test_cuda_repaint_epilogue_after_early_trigger(b):
+    """Kernel 7 behind a predecessor that lets it start at once and writes its
+    eps 1 ms later (``early_trigger_copy``): it must read eps only after
+    griddepcontrol.wait, and so match the plain version on the written eps."""
+    import ctypes
+
+    from polyffusion_tpu_torch.ops._build import load
+
+    g = _card()
+    copy = load("repaint_epilogue").early_trigger_copy
+    copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
+                     ctypes.c_void_p]
+    copy.restype = ctypes.c_int
+    cfg = load_params("sdf_chd8bar")
+    scalars = _epilogue_scalars(make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end), 500)
+    shape = (b, 2, 128, 128)
+    x, eps, p_noise, q_noise = (torch.randn(shape, device="cuda", generator=g) for _ in range(4))
+    orig = (torch.rand(shape, device="cuda", generator=g) < 0.05).float()
+    mask = (torch.rand(shape, device="cuda", generator=g) < 0.5).float()
+    late = torch.zeros_like(eps)
+    torch.cuda.synchronize()
+    fused_repaint_epilogue(x, eps, p_noise, orig, q_noise, mask, scalars)  # loads the module
+    torch.cuda.synchronize()
+    assert copy(eps.data_ptr(), late.data_ptr(), eps.numel(), 1_000_000,
+                torch.cuda.current_stream().cuda_stream) == 0
+    got = fused_repaint_epilogue(x, late, p_noise, orig, q_noise, mask, scalars)
+    torch.cuda.synchronize()
+    want = repaint_epilogue_reference(x, eps, p_noise, orig, q_noise, mask, scalars)
+    assert _within(got, want, *EPI_LIMIT)
 
 
 @pytest.mark.cuda
