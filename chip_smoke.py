@@ -49,7 +49,19 @@ after:
   conditions and an ``sdf_chd8bar_txt`` UNet eval on the card against the
   CPU, a DDIM-50 CFG-5 request of ``sdf_chd8bar_txt`` at batch 64 and of
   ``sdf_txtvnl`` at batch 16, ``sdf_chd8bar_txt_mix2`` trained for 12 steps
-  through ``polyffusion_tpu_torch.main`` and sampled through the CLI.
+  through ``polyffusion_tpu_torch.main`` and sampled through the CLI;
+- the pretraining of the frozen encoders, fp32 at the presets' widths (plain
+  PyTorch: no kernel of the port runs there, and none may launch): one train
+  step of ``chd_8bar`` (batch 128) and of ``pnotree_vae`` (4 segments) on the
+  card against the CPU; ``chd_8bar`` through ``polyffusion_tpu_torch.main``
+  for 30 steps, one validation and one checkpoint, then ``--resume`` for 6;
+  ``pnotree_vae`` at batch 32 (128 segments) for 3 steps and 2 resumed; each
+  task's ms per step (host clock, CUDA events), device busy and idle share
+  (``torch.profiler``) and device kernels per step; then both run directories
+  as frozen encoders (``<pretrained>/chd8bar/``, ``<pretrained>/pnotree/``):
+  ``sdf_chd8bar`` and ``sdf_pnotree`` trained 4 steps each from them, and
+  each task's ``encode_cond`` on the card against the trained encoder on the
+  CPU.
 
 Every phase raises on failure and the script then exits non-zero without a
 result. It imports nothing of JAX or of the JAX package.
@@ -189,6 +201,17 @@ COND_ATOL = 2e-5
 COND_PRESETS = ("sdf_txt", "sdf_txtvnl", "sdf_chd8bar_txt", "sdf_chd8bar_txt_mix2", "sdf_pnotree")
 COND_REQUESTS = (("sdf_chd8bar_txt", 64), ("sdf_txtvnl", 16))  # (preset, batch), DDIM-50 CFG 5
 MIX2_STEPS = 12
+# The pretraining of the frozen encoders at their presets' widths, fp32 (no
+# kernel of the port on these paths): chd_8bar (hidden 512, z 512) at its batch
+# 128, CHD_VAL_SONGS of the training songs held out so that one val batch
+# fills; pnotree_vae at batch 32 (128 segments of the decoder); the card vs
+# CPU step of pnotree_vae at PNO_CHECK_BATCH (4 segments). Then sdf_chd8bar and
+# sdf_pnotree, full width, bf16, trained SDF_FROM_RUN_STEPS steps from their
+# run directories.
+CHD_STEPS, CHD_RESUME_STEPS, CHD_VAL_SONGS = 30, 6, 8
+PNO_BATCH, PNO_STEPS, PNO_RESUME_STEPS, PNO_CHECK_BATCH = 32, 3, 2, 1
+SDF_FROM_RUN_STEPS = 4
+VAE_PROFILE = {"chd_8bar": (5, 3), "pnotree_vae": (2, 1)}  # (timed, profiled) warm steps
 GN_CONV_SITES, GN_CONV_TWO_INPUT = 44, 12  # per UNet eval: 22 ResBlocks x 2; decoder in_layers
 GN_CONV_BATCH = 64
 FUSED_TRAIN_STEPS = 3  # bf16 train steps through kernel 4 (counted per step)
@@ -1977,6 +2000,285 @@ def drive_mix2_paths(counters, work):
     return training, cli
 
 
+def vae_task(name, device, seed, **over):
+    """The training CLI's task of a VAE preset, weights from ``seed``."""
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.main import build_task
+
+    cfg = load_params(name)
+    cfg.update(over)
+    return cfg, build_task(cfg, device=device, seed=seed)
+
+
+def vae_batch(data, name, b, device):
+    """``b`` segments of the songs, as the feeder sends them to ``device``:
+    the task's fields only, chord as uint8, pnotree as int16."""
+    import torch
+
+    prmat2c, pnotree, chord, prmat = song_batch(data, b)
+    empty = torch.zeros((b, 1))
+    if name == "chd_8bar":
+        return (empty.to(device), empty.to(device), chord.to(device, torch.uint8),
+                empty.to(device))
+    return empty.to(device), pnotree.to(device, torch.int16), empty.to(device), empty.to(device)
+
+
+def check_vae_steps_against_cpu(work):
+    """One fp32 train step of ``chd_8bar`` (full width, its batch 128) and of
+    ``pnotree_vae`` (full width, PNO_CHECK_BATCH items = 4 segments) on the card
+    against the CPU: same weights, batch, noise and teacher-forcing coins (drawn
+    on the CPU at the presets' step-0 rates); the loss and every metric, the
+    gradients per tensor and their norm, and the updated parameters, within the
+    limits of the sdf step check."""
+    import torch
+
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+    from polyffusion_tpu_torch.train.schedulers import make_param_scheduler
+
+    data = os.path.join(work, "songs")
+    for name, b in (("chd_8bar", None), ("pnotree_vae", PNO_CHECK_BATCH)):
+        cfg, cpu_task = vae_task(name, "cpu", seed=21)
+        b = b or cfg.batch_size
+        batch = vae_batch(data, name, b, "cpu")
+        sched = make_param_scheduler(cfg).step(0)
+        noise = cpu_task.draw_noise(batch, torch.Generator().manual_seed(22), sched)
+        out = {}
+        for device in ("cuda", "cpu"):
+            task = cpu_task if device == "cpu" else vae_task(name, "cuda", seed=21)[1]
+            state = create_state(task.model, cfg.learning_rate, cfg.max_grad_norm)
+            t0 = time.perf_counter()
+            metrics = make_train_step(task)(state, tuple(t.to(device) for t in batch), seed=0,
+                                            noise=type(noise)(*(t.to(device) for t in noise)))
+            metrics = {k: v.item() for k, v in metrics.items()}
+            params = {k: v.detach().cpu() for k, v in state.params().items()}
+            grads = {k: v.grad.cpu() for k, v in state.params().items()}
+            out[device] = (metrics, params, grads, time.perf_counter() - t0)
+            del task, state
+        (got_m, got, got_g, t_gpu), (want_m, want, want_g, t_cpu) = out["cuda"], out["cpu"]
+        errs = {k: abs(got_m[k] - w) / abs(w) for k, w in want_m.items()}
+        grad_ratio, worst = 0.0, ""
+        for k, w in want_g.items():
+            r = ((got_g[k] - w).norm() / (STEP_GRAD_RTOL * w.norm() + 1e-9)).item()
+            if r > grad_ratio:
+                grad_ratio, worst = r, k
+        err = torch.cat([(got[k] - w).abs().flatten() for k, w in want.items()])
+        share = (err > STEP_PARAM_TIGHT).float().mean().item()
+        lr = cfg.learning_rate
+        log(f"[pretrain] {name} fp32 step (batch {b}, coins at {sched}) card vs CPU: loss "
+            f"{got_m['loss']:.7g} vs {want_m['loss']:.7g}; rel errors "
+            f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (limits: metrics "
+            f"{STEP_LOSS_RTOL}, grad_norm {STEP_NORM_RTOL}); gradients per tensor "
+            f"{grad_ratio:.3g} x the limit (rel {STEP_GRAD_RTOL} in norm; worst {worst}); params "
+            f"max_abs_err {err.max().item():.3g} (limit {2 * lr:.3g}), share above "
+            f"{STEP_PARAM_TIGHT}: {share:.3g} (limit {STEP_PARAM_SHARE}); card {t_gpu:.2f} s "
+            f"(first call), CPU {t_cpu:.2f} s")
+        if not (all(v <= (STEP_NORM_RTOL if k == "grad_norm" else STEP_LOSS_RTOL)
+                    for k, v in errs.items())
+                and grad_ratio <= 1.0 and err.max().item() <= 2 * lr and share <= STEP_PARAM_SHARE):
+            raise AssertionError(f"the {name} fp32 train step on the card disagrees with the CPU")
+
+
+def run_training_cli(counters, args, label):
+    """``polyffusion_tpu_torch.main`` with the launch counts set to 0 just
+    before and read just after; returns (final state, seconds, launches)."""
+    import torch
+
+    from polyffusion_tpu_torch.main import main as train_main
+
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {name: fn.launches for name, fn in counters.items()}
+    log(f"[pretrain] {label}: ended at step {state.step} in {secs:.3f} s (with setup), "
+        f"launches {got}")
+    return state, secs, got
+
+
+def drive_vae_training(counters, work):
+    """``polyffusion_tpu_torch.main`` for ``chd_8bar`` (its batch 128, the
+    training songs with CHD_VAL_SONGS held out by a split file) and
+    ``pnotree_vae`` (batch PNO_BATCH): some steps with one validation and one
+    checkpoint, then ``--resume`` for a few more, each run with the launch
+    counts set to 0 just before it and read just after (these paths run none
+    of the port's kernels). Writes ``run_chd8bar`` and ``run_pnotree`` under
+    ``work``; returns each run's launches and the warm host ms per step."""
+    import pickle
+
+    data = os.path.join(work, "songs")
+    songs = sorted(f for f in os.listdir(data) if f.endswith(".npz"))
+    split = os.path.join(work, "chd_split.pkl")
+    with open(split, "wb") as f:
+        pickle.dump((songs[:-CHD_VAL_SONGS], songs[-CHD_VAL_SONGS:]), f)
+    zero = {name: 0 for name in counters}
+    plans = {
+        "chd_8bar": (["--split_file", split, "--log_every", "10"], CHD_STEPS, CHD_RESUME_STEPS),
+        "pnotree_vae": (["--batch_size", str(PNO_BATCH), "--log_every", "1"], PNO_STEPS,
+                        PNO_RESUME_STEPS),
+    }
+    launches, host_ms = {}, {}
+    for name, (extra, steps, more) in plans.items():
+        run = os.path.join(work, f"run_{name}")
+        args = ["--model", name, "--output_dir", run, "--data_dir", data, "--seed", "0",
+                "--save_every", "1000"] + extra
+        for n, resume in ((steps, []), (steps + more, ["--resume"])):
+            state, _, got = run_training_cli(counters, args + ["--max_steps", str(n)] + resume,
+                                             f"{name} {'resumed ' if resume else ''}run")
+            if got != zero:
+                raise AssertionError(f"{name} launched a kernel: {got}")
+            if state.step != n:
+                raise AssertionError(f"{name} run ended at step {state.step}, not {n}")
+        launches[name] = zero
+        records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+        train = [r for r in records if "train/loss" in r]
+        val = [r for r in records if "val/loss" in r]
+        values = [v for r in train + val for k, v in r.items() if k.startswith(("train/", "val/"))]
+        if not (train and values and np.isfinite(values).all()):
+            raise AssertionError(f"{name}: bad metrics {records}")
+        if [r["step"] for r in val] != [steps, steps + more]:
+            raise AssertionError(f"{name}: validation at steps {[r['step'] for r in val]}: the "
+                                 f"resumed run did not start at step {steps}")
+        if not os.path.getsize(os.path.join(run, "chkpts", "last.pt")):
+            raise AssertionError(f"{name}: no checkpoint written")
+        host_ms[name] = 1e3 / train[-1]["steps_per_sec"]
+        log(f"[pretrain] {name}: losses {[round(r['train/loss'], 5) for r in train]}, val "
+            f"{[{k[4:]: round(v, 5) for k, v in r.items() if k.startswith('val/')} for r in val]}; "
+            f"last window {host_ms[name]:.3f} ms/step (host clock, metrics.jsonl)")
+    return launches, host_ms
+
+
+def profile_vae_steps(name, work):
+    """Warm fp32 train steps of a VAE preset at full width and its batch on
+    the card: ms per step on the host clock and from CUDA events over the
+    timed steps, then ``torch.profiler`` over the profiled ones: device busy
+    ms and idle share, device kernels per step. Returns those numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from polyffusion_tpu_torch.profile_train import kernel_launches
+    from polyffusion_tpu_torch.profile_unet import breakdown
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+    from polyffusion_tpu_torch.train.schedulers import make_param_scheduler
+
+    import types
+
+    timed, profiled = VAE_PROFILE[name]
+    cfg, task = vae_task(name, "cuda", seed=23, **({"batch_size": PNO_BATCH}
+                                                    if name == "pnotree_vae" else {}))
+    batch = vae_batch(os.path.join(work, "songs"), name, cfg.batch_size, "cuda")
+    state = create_state(task.model, cfg.learning_rate, cfg.max_grad_norm)
+    step, sched = make_train_step(task), make_param_scheduler(cfg).step(0)
+
+    def run(n):
+        for _ in range(n):
+            step(state, batch, seed=0, sched=sched)
+        torch.cuda.synchronize()
+
+    run(1)  # warm up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run(timed)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / timed
+    event_ms = start.elapsed_time(end) / timed
+    # the device's activity only: a pnotree_vae step launches some 200 000
+    # kernels, and the host operators' events would multiply the trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(profiled)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[pretrain] {name} fp32 train step at batch {cfg.batch_size}, under torch.profiler "
+        f"({profiled} warm steps):")
+    averages = prof.key_averages()  # once: both readers take the same table
+    prof = types.SimpleNamespace(key_averages=lambda: averages)
+    busy_ms = breakdown(prof, wall_ms, profiled, "step")
+    kernels = kernel_launches(prof, profiled)["kernels_per_step"]
+    busy = f"{busy_ms / profiled:.3f} ms/step" if busy_ms else "not measured"
+    out = dict(batch=cfg.batch_size, host_ms_per_step=host_ms, event_ms_per_step=event_ms,
+               busy_ms_per_step=busy_ms / profiled if busy_ms else None,
+               idle_share=1 - busy_ms / wall_ms if busy_ms else None, kernels_per_step=kernels)
+    log(f"[pretrain] {name}: {host_ms:.3f} ms/step host clock, {event_ms:.3f} ms/step CUDA "
+        f"events (mean of {timed}); device busy {busy}, idle share "
+        f"{out['idle_share'] if busy_ms else 'not measured'} of the profiled window; "
+        f"{kernels:.0f} device kernels/step")
+    return out
+
+
+def drive_sdf_from_runs(counters, work):
+    """The VAE run directories as frozen encoders: ``run_chd_8bar`` linked as
+    ``<pretrained>/chd8bar/`` and ``run_pnotree_vae`` as ``pnotree/``, then
+    ``sdf_chd8bar`` and ``sdf_pnotree`` (full width, bf16, batch 16) trained
+    SDF_FROM_RUN_STEPS steps each through ``polyffusion_tpu_torch.main``, with
+    the launch counts set to 0 just before and read just after. Then, on the
+    card, each task's ``encode_cond`` against the trained encoder's output on
+    the CPU (COND_ATOL), and against a random encoder's (it must differ).
+    Returns the launches of both runs."""
+    import torch
+
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.data import BatchLoader, SegmentDataset
+    from polyffusion_tpu_torch.models import ChordEncoder, PianoTreeEncoder, init_weights_
+    from polyffusion_tpu_torch.models.encoders import build_frozen_encoders, run_encoder_state
+    from polyffusion_tpu_torch.tasks import SDFTask
+
+    data = os.path.join(work, "songs")
+    pretrained = os.path.join(work, "pretrained_runs")
+    os.makedirs(pretrained)
+    os.symlink(os.path.join(work, "run_chd_8bar"), os.path.join(pretrained, "chd8bar"))
+    os.symlink(os.path.join(work, "run_pnotree_vae"), os.path.join(pretrained, "pnotree"))
+    _, val_ds = SegmentDataset.train_val_from_dir(data, 0.9)
+    val_batches = len(BatchLoader(val_ds, 16))
+    want = dict({name: 0 for name in counters},
+                packed_attention=ATTENTION_SITES * (SDF_FROM_RUN_STEPS + val_batches),
+                packed_attention_bwd=ATTENTION_SITES * SDF_FROM_RUN_STEPS,
+                gn_bwd=GROUPNORM_SITES * SDF_FROM_RUN_STEPS)
+    batch = song_batch(data, 8)
+    launches = {}
+    for name, run_name, prefix, make_enc in (
+            ("sdf_chd8bar", "chd_8bar", "chord_enc", lambda: ChordEncoder()),
+            ("sdf_pnotree", "pnotree_vae", "pnotree_enc", lambda: PianoTreeEncoder())):
+        run = os.path.join(work, f"run_{name}_from_run")
+        state, _, got = run_training_cli(
+            counters, ["--model", name, "--output_dir", run, "--data_dir", data,
+                       "--pretrained_dir", pretrained, "--log_every", "2", "--seed", "0",
+                       "--max_steps", str(SDF_FROM_RUN_STEPS)], f"{name} from the {run_name} run")
+        records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+        losses = [r[k] for r in records for k in ("train/loss", "val/loss") if k in r]
+        if got != want:
+            raise AssertionError(f"expected launches {want}, got {got}")
+        if not (state.step == SDF_FROM_RUN_STEPS and losses and np.isfinite(losses).all()):
+            raise AssertionError(f"{name} ended at step {state.step} with losses {losses}")
+        launches[name] = got
+
+        cfg = load_params(name)
+        task = SDFTask(cfg, **build_frozen_encoders(cfg, pretrained), device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+        got_cond = task.encode_cond(batch).cpu()
+        del task
+        trained = make_enc()
+        trained.load_state_dict(run_encoder_state(os.path.join(work, f"run_{run_name}"),
+                                                  run_name, prefix), strict=True)
+        random_enc = init_weights_(make_enc(), torch.Generator().manual_seed(24))
+        with torch.no_grad():
+            if name == "sdf_chd8bar":
+                ref, other = (enc(batch[2].float())[0][:, None] for enc in (trained, random_enc))
+            else:
+                ref, other = (torch.cat([enc(seg)[0] for seg in batch[1].split(32, dim=1)],
+                                         dim=-1)[:, None] for enc in (trained, random_enc))
+        err = (got_cond - ref).abs().max().item()
+        apart = (got_cond - other).abs().max().item()
+        log(f"[pretrain] {name} encode_cond {tuple(ref.shape)} on the card vs the trained "
+            f"{run_name} encoder on the CPU: max_abs_err {err:.3g} (atol {COND_ATOL}); vs a "
+            f"random encoder: max_abs_diff {apart:.3g}; losses {[round(x, 5) for x in losses]}")
+        if not (err <= COND_ATOL and apart > 100 * COND_ATOL):
+            raise AssertionError(f"{name}: the condition is not the trained {run_name} encoder's")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2069,6 +2371,15 @@ def main() -> int:
         check_conditions_against_cpu(work)
         cond_requests, _ = drive_condition_requests(counters, work)
         mix2_training, mix2_cli = drive_mix2_paths(counters, work)
+        # the pretraining of the frozen encoders, then their run directories as
+        # the frozen encoders of sdf_chd8bar and sdf_pnotree
+        check_vae_steps_against_cpu(work)
+        _, vae_host_ms = drive_vae_training(counters, work)
+        vae_profiles = {name: profile_vae_steps(name, work) for name in VAE_PROFILE}
+        for name, row in vae_profiles.items():
+            row["cli_host_ms_per_step"] = vae_host_ms[name]
+        from_runs = drive_sdf_from_runs(counters, work)
+        log(f"[pretrain] summary {json.dumps(vae_profiles)}")
 
     def entry(name, source, replaces, launches, rows, main_row, errs_of):
         extra = {}
@@ -2107,13 +2418,17 @@ def main() -> int:
                "autoreg": cli["autoreg"]["packed_attention"],
                **{f"sampling_{name}": n["packed_attention"] for name, n in cond_requests.items()},
                "training_mix2": mix2_training["packed_attention"],
-               "cli_mix2": mix2_cli["packed_attention"]},
+               "cli_mix2": mix2_cli["packed_attention"],
+               **{f"training_{name}_from_run": n["packed_attention"]
+                  for name, n in from_runs.items()}},
               rows, rows[0], fwd_bf16),
         # B=16 T=1024 bf16: the train step's dominant shape
         entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
               "polyffusion_tpu/ops/fused_attention.py:111",
               {"training": training["packed_attention_bwd"],
-               "training_mix2": mix2_training["packed_attention_bwd"]}, bwd_rows, bf16[0], bf16),
+               "training_mix2": mix2_training["packed_attention_bwd"],
+               **{f"training_{name}_from_run": n["packed_attention_bwd"]
+                  for name, n in from_runs.items()}}, bwd_rows, bf16[0], bf16),
         # BH=512 T=1024 D=64 bf16: a batch-128 level-2 self-attention in head-major
         # form; on no model path, driven directly
         entry("head_major_attention", "polyffusion_tpu_torch/ops/csrc/packed_attention.cu",
@@ -2122,7 +2437,8 @@ def main() -> int:
         # B=16 C=64 128x128 bf16: the largest GroupNorm of the train step
         entry("gn_bwd", "polyffusion_tpu_torch/ops/csrc/gn_bwd.cu",
               "polyffusion_tpu/ops/gn_bwd.py:66",
-              {"training": training["gn_bwd"], "training_mix2": mix2_training["gn_bwd"]},
+              {"training": training["gn_bwd"], "training_mix2": mix2_training["gn_bwd"],
+               **{f"training_{name}_from_run": n["gn_bwd"] for name, n in from_runs.items()}},
               gn_rows, gn_rows[0], gn_rows),
         # B=2 2x128x128 fp32: request A's sampler batch
         entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",

@@ -101,15 +101,20 @@ def unet_state_from_jax(params: Mapping) -> StateDict:
     return out
 
 
+def _gru(out: StateDict, tk: str, g: Mapping, sfx: str = "") -> None:
+    """A JAX GRU cell's wi, wh, bi, bh -> ``nn.GRU`` layer 0 (``sfx``
+    "_reverse": its backward direction)."""
+    out[f"{tk}.weight_ih_l0{sfx}"] = _t(np.asarray(g["wi"]).T)
+    out[f"{tk}.weight_hh_l0{sfx}"] = _t(np.asarray(g["wh"]).T)
+    out[f"{tk}.bias_ih_l0{sfx}"] = _t(g["bi"])
+    out[f"{tk}.bias_hh_l0{sfx}"] = _t(g["bh"])
+
+
 def _bigru(out: StateDict, tk: str, sub: Mapping) -> None:
     """A JAX ``BiGRU`` (``fwd``/``bwd`` of wi, wh, bi, bh; gates r | z | n in
     column blocks) -> ``nn.GRU`` layer 0 and its ``_reverse`` (rows r | z | n)."""
-    for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
-        g = sub[direction]
-        out[f"{tk}.weight_ih_l0{sfx}"] = _t(np.asarray(g["wi"]).T)
-        out[f"{tk}.weight_hh_l0{sfx}"] = _t(np.asarray(g["wh"]).T)
-        out[f"{tk}.bias_ih_l0{sfx}"] = _t(g["bi"])
-        out[f"{tk}.bias_hh_l0{sfx}"] = _t(g["bh"])
+    _gru(out, tk, sub["fwd"])
+    _gru(out, tk, sub["bwd"], "_reverse")
 
 
 def chord_encoder_state_from_jax(params: Mapping) -> StateDict:
@@ -140,6 +145,39 @@ def pianotree_encoder_state_from_jax(params: Mapping) -> StateDict:
         _linear(out, name, params[name])
     _bigru(out, "enc_notes_gru", params["notes_gru"])
     _bigru(out, "enc_time_gru", params["time_gru"])
+    return out
+
+
+def chord_decoder_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``ChordDecoder`` params -> the port's ``ChordDecoder`` state dict
+    (the reference ``chord_dec.py`` names; inverse of JAX
+    ``convert/torch_import.py:chord_decoder_params_from_torch``)."""
+    out: StateDict = {}
+    for name in ("z2dec_hid", "z2dec_in", "root_out", "chroma_out", "bass_out"):
+        _linear(out, name, params[name])
+    _gru(out, "gru", params["gru"])
+    out["init_input"] = _t(params["init_input"])
+    return out
+
+
+PIANOTREE_DECODER_LINEARS = ("note_embedding", "z2dec_hid_linear", "z2dec_in_linear",
+                             "dec_time_to_notes_hid", "pitch_out_linear", "dur_hid_linear",
+                             "dur_out_linear")
+
+
+def pianotree_decoder_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``PianoTreeDecoder`` params -> the port's ``PianoTreeDecoder`` state
+    dict (the reference ``PtvaeDecoder`` names; inverse of JAX
+    ``convert/torch_import.py:pianotree_decoder_params_from_torch``)."""
+    out: StateDict = {}
+    for name in PIANOTREE_DECODER_LINEARS:
+        _linear(out, name, params[name])
+    _gru(out, "dec_notes_emb_gru", params["dec_notes_emb_gru_fwd"])
+    _gru(out, "dec_notes_emb_gru", params["dec_notes_emb_gru_bwd"], "_reverse")
+    for name in ("dec_time_gru", "dec_notes_gru", "dec_dur_gru"):
+        _gru(out, name, params[name])
+    for name in ("dec_init_input", "dur_sos_token"):
+        out[name] = _t(params[name])
     return out
 
 

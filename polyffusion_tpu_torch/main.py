@@ -1,12 +1,18 @@
-"""Training CLI (counterpart of ``polyffusion_tpu/main.py``, sdf presets, one GPU):
+"""Training CLI (counterpart of ``polyffusion_tpu/main.py``, one GPU): the
+diffusion presets (``sdf*``) and the pretraining of their frozen encoders,
+the chord VAE (``chd_8bar``) and the PianoTree VAE (``pnotree_vae``):
 
+    python -m polyffusion_tpu_torch.main --model chd_8bar --output_dir result/chd \\
+        --data_dir <npz dir>
     python -m polyffusion_tpu_torch.main --model sdf_chd8bar --output_dir result/x \\
-        --data_dir <npz dir> --pretrained_dir <dir with chd8bar.pt, polydis.pt, pnotree.pt>
+        --data_dir <npz dir> --pretrained_dir <dir with chd8bar/ (a chd_8bar run
+        directory) or chd8bar.pt; polydis.pt; pnotree/ or pnotree.pt>
 
 Model presets come from ``polyffusion_tpu_torch/params/*.yaml``; the run
 directory gets a ``params.yaml`` copy, ``torch.save`` checkpoints under
-``chkpts/`` and ``metrics.jsonl``. Training runs on the GPU unless
-``--device cpu`` is given.
+``chkpts/`` and ``metrics.jsonl``. A preset's ``tfr_*`` keys ([high, low])
+become teacher-forcing schedules. Training runs on the GPU unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -22,19 +28,36 @@ from .config import load_params
 from .data import SegmentDataset, make_loaders
 from .device import DeviceLike
 from .models.encoders import build_frozen_encoders
-from .tasks import SDFTask
+from .tasks import Chd8BarTask, PnoTreeVAETask, SDFTask
+from .tasks.sdf import refuse_unported_trainer_keys
 from .train import Trainer
+from .train.schedulers import make_param_scheduler
+
+VAE_TASKS = {"chd_8bar": Chd8BarTask, "pnotree_vae": PnoTreeVAETask}
+NOT_PORTED = {"ddpm": 10, "autoencoder": 11}  # model_name -> its ROADMAP.md item
 
 
 def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 0,
-               gn_conv: str = "unfused") -> SDFTask:
-    """The task of ``cfg`` for training: UNet weights fp32 from ``seed``, the
-    frozen encoders from ``pretrained_dir``; ``gn_conv`` "unfused" or
-    "fused" (the int8 route has no gradient)."""
-    if not cfg["model_name"].startswith("sdf"):
-        raise NotImplementedError(f"{cfg['model_name']}: the port trains sdf presets only")
-    return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained_dir), device=device,
-                   generator=torch.Generator().manual_seed(seed), training=True, gn_conv=gn_conv)
+               gn_conv: str = "unfused"):
+    """The task of ``cfg`` for training, weights fp32 from ``seed`` (JAX
+    ``build_task`` :16-37): an ``sdf*`` preset's ``SDFTask`` with the frozen
+    encoders from ``pretrained_dir`` and ``gn_conv`` "unfused" or "fused" (the
+    int8 route has no gradient); ``Chd8BarTask``; ``PnoTreeVAETask``."""
+    model_name = cfg["model_name"]
+    refuse_unported_trainer_keys(cfg)
+    generator = torch.Generator().manual_seed(seed)
+    if model_name.startswith("sdf"):
+        return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained_dir), device=device,
+                       generator=generator, training=True, gn_conv=gn_conv)
+    if model_name in NOT_PORTED:
+        raise NotImplementedError(
+            f"model_name {model_name} is not ported yet (ROADMAP.md item {NOT_PORTED[model_name]})")
+    if model_name not in VAE_TASKS:
+        raise NotImplementedError(model_name)
+    if gn_conv != "unfused":
+        raise ValueError(f"gn_conv={gn_conv!r}: the GroupNorm-SiLU-conv route is the sdf UNet's; "
+                         f"{model_name} has none")
+    return VAE_TASKS[model_name](cfg, device=device, generator=generator)
 
 
 def main(argv=None):
@@ -46,7 +69,8 @@ def main(argv=None):
     p.add_argument("--pop909_use_track", default="0,1,2", help="tracks for prmat2c")
     p.add_argument("--pretrained_dir", default=None,
                    help="frozen encoder checkpoints: chd8bar, polydis (texture) or pnotree, "
-                   "each .pt or .npz")
+                   "each .pt or .npz, or chd8bar/ and pnotree/ as run directories of a "
+                   "chd_8bar and a pnotree_vae training")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None, help="override preset batch size")
     p.add_argument("--log_every", type=int, default=100)
@@ -101,7 +125,8 @@ def main(argv=None):
         used_fields=task.used_batch_fields,
     )
     trainer = Trainer(task, cfg, output_dir, max_steps=args.max_steps,
-                      log_every=args.log_every, save_every=args.save_every)
+                      log_every=args.log_every, save_every=args.save_every,
+                      param_scheduler=make_param_scheduler(cfg))
     print(f"[train] model={args.model} device={task.device} batch={cfg['batch_size']} "
           f"out={output_dir}")
     return trainer.fit(train_dl, val_dl, seed=args.seed, resume=args.resume)

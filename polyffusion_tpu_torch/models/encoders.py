@@ -1,7 +1,7 @@
-"""Frozen conditioning encoders (counterpart of
-``polyffusion_tpu/models/encoders.py``): the chord, texture and PianoTree VAE
-encoders and the loader of their pretrained weights. Parameter names are the
-reference modules', so the reference checkpoints load strictly."""
+"""Conditioning VAEs (counterpart of ``polyffusion_tpu/models/encoders.py``):
+the chord, texture and PianoTree VAE encoders, the chord VAE's decoder and
+loss, and the loader of the encoders' pretrained weights. Parameter names are
+the reference modules', so the reference checkpoints load strictly."""
 
 from __future__ import annotations
 
@@ -10,14 +10,22 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..config import load_params
 from ..convert import (
     chord_encoder_state_from_jax,
     pianotree_encoder_state_from_jax,
     texture_encoder_state_from_jax,
 )
-from .gru import BiGRU
+from .gru import BiGRU, gru_cell
+
+
+def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.nn.one_hot`` by a comparison: ``F.one_hot`` checks the range of
+    its indices, which waits for the card."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
 class ChordEncoder(nn.Module):
@@ -33,6 +41,69 @@ class ChordEncoder(nn.Module):
     def forward(self, chord: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         _, final = self.gru(chord)
         return self.linear_mu(final), torch.exp(self.linear_var(final))
+
+
+class ChordDecoder(nn.Module):
+    """Autoregressive GRU chord decoder (JAX ``ChordDecoder`` :38-136, reference
+    ``dl_modules/chord_dec.py:7-85``): per step root (12), chroma (12 x 2) and
+    bass (12) logits. The next step's input is the one-hot argmax triple, or
+    the ground truth of this step where its teacher-forcing coin is true (one
+    coin a step, shared by the batch).
+
+    As JAX's, the feedback one-hot is built per sample: the reference's
+    (``chord_dec.py:57-63``) writes every sample's argmax into every other's
+    at batch > 1."""
+
+    def __init__(self, input_dim: int = 36, z_input_dim: int = 512, hidden_dim: int = 512,
+                 z_dim: int = 512, n_step: int = 32):
+        super().__init__()
+        self.n_step = n_step
+        self.z2dec_hid = nn.Linear(z_dim, hidden_dim)
+        self.z2dec_in = nn.Linear(z_dim, z_input_dim)
+        self.gru = nn.GRU(input_dim + z_input_dim, hidden_dim, batch_first=True)
+        self.init_input = nn.Parameter(torch.rand(input_dim))
+        self.root_out = nn.Linear(hidden_dim, 12)
+        self.chroma_out = nn.Linear(hidden_dim, 24)
+        self.bass_out = nn.Linear(hidden_dim, 12)
+
+    def forward(self, z: torch.Tensor, coins: Optional[torch.Tensor] = None,
+                gt_chd: Optional[torch.Tensor] = None):
+        """z (B, z_dim) -> logits root (B, T, 12), chroma (B, T, 12, 2), bass
+        (B, T, 12). ``coins``: (T,) bool, true where step t feeds ``gt_chd[:, t]``
+        (B, T, 36) on; None decodes free-running (inference). The coins are
+        explicit: JAX draws them as ``uniform(rng, (T,)) < tfr`` (:97-104)."""
+        b = z.shape[0]
+        h = self.z2dec_hid(z)
+        z_in = self.z2dec_in(z)
+        token = self.init_input.expand(b, -1)
+        roots, chromas, basses = [], [], []
+        for t in range(self.n_step):
+            h = gru_cell(self.gru, torch.cat([token, z_in], dim=-1), h)
+            r_root, r_bass = self.root_out(h), self.bass_out(h)
+            r_chroma = self.chroma_out(h).reshape(b, 12, 2)
+            pred = torch.cat([one_hot(r_root.argmax(-1), 12, h.dtype),
+                              r_chroma.argmax(-1).to(h.dtype),
+                              one_hot(r_bass.argmax(-1), 12, h.dtype)], dim=-1)
+            token = pred if coins is None else torch.where(coins[t], gt_chd[:, t], pred)
+            roots.append(r_root)
+            chromas.append(r_chroma)
+            basses.append(r_bass)
+        return torch.stack(roots, 1), torch.stack(chromas, 1), torch.stack(basses, 1)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under ``logits`` (last axis)."""
+    return -F.log_softmax(logits, dim=-1).gather(-1, labels[..., None]).mean()
+
+
+def chord_recon_loss(chord: torch.Tensor, r_root: torch.Tensor, r_chroma: torch.Tensor,
+                     r_bass: torch.Tensor):
+    """CE losses of a (B, T, 36) chord one-hot (JAX ``chord_recon_loss`` :139-152,
+    reference ``chord_dec.py:71-85``): (total, root, chroma, bass)."""
+    root = cross_entropy(r_root, chord[..., :12].argmax(-1))
+    chroma = cross_entropy(r_chroma, chord[..., 12:24].long())
+    bass = cross_entropy(r_bass, chord[..., 24:].argmax(-1))
+    return root + chroma + bass, root, chroma, bass
 
 
 class TextureEncoder(nn.Module):
@@ -135,24 +206,54 @@ def _under(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     return hit or sd
 
 
+# the run directories build_frozen_encoders reads: base -> (the run's model_name,
+# the prefix of the encoder in its trained weights)
+RUN_DIRS = {"chd8bar": ("chd_8bar", "chord_enc"), "pnotree": ("pnotree_vae", "pnotree_enc")}
+
+
+def run_encoder_state(run_dir: str, model_name: str, prefix: str) -> Dict[str, torch.Tensor]:
+    """The ``prefix`` part (stripped) of the trained weights of a run directory
+    of the port's trainer (``params.yaml``, ``chkpts/last.pt``) whose
+    ``model_name`` is ``model_name`` (JAX ``load_chord_encoder_from_run`` :246,
+    ``load_pnotree_encoder_from_run`` :266, for its orbax runs)."""
+    params_path = os.path.join(run_dir, "params.yaml")
+    last = os.path.join(run_dir, "chkpts", "last.pt")
+    if not (os.path.exists(params_path) and os.path.exists(last)):
+        raise NotImplementedError(
+            f"{run_dir} has no params.yaml and chkpts/last.pt: it is not a run directory of "
+            "the port's trainer (JAX orbax run directories are ROADMAP.md item 15)")
+    got = load_params(params_path).get("model_name")
+    if got != model_name:
+        raise ValueError(f"{run_dir} is a {got!r} run, not a {model_name!r} run")
+    params = torch.load(last, map_location="cpu", weights_only=True)["params"]
+    return {k[len(prefix) + 1:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+
+
 def _encoder_state(pretrained_dir: Optional[str], base: str,
                    from_tree: Callable[[Dict], Dict[str, torch.Tensor]],
                    from_pt: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]):
-    """An encoder's state dict from ``<pretrained_dir>/<base>.npz`` (the JAX
-    package's conversion) or ``<base>.pt`` (the reference's checkpoint)."""
+    """An encoder's state dict from, in this order (JAX's): ``<pretrained_dir>/<base>/``,
+    a run directory of the port's trainer (a ``chd_8bar`` run for ``chd8bar``,
+    a ``pnotree_vae`` run for ``pnotree``); ``<base>.npz`` (the JAX package's
+    conversion); ``<base>.pt`` (the reference's checkpoint)."""
+    run = f"{base}/ (a {RUN_DIRS[base][0]} run directory), " if base in RUN_DIRS else ""
     if not pretrained_dir:
         raise FileNotFoundError(
             f"this config needs the pretrained '{base}' encoder: pass --pretrained_dir "
-            f"with {base}.pt or {base}.npz"
+            f"with {run}{base}.pt or {base}.npz"
         )
+    run_dir = os.path.join(pretrained_dir, base)
+    if base in RUN_DIRS and os.path.isdir(run_dir):
+        return from_pt(run_encoder_state(run_dir, *RUN_DIRS[base]))
     npz_path = os.path.join(pretrained_dir, f"{base}.npz")
     if os.path.exists(npz_path):
         return from_tree(_load_npz_tree(npz_path))
     pt_path = os.path.join(pretrained_dir, f"{base}.pt")
     if not os.path.exists(pt_path):
         raise FileNotFoundError(
-            f"pretrained checkpoint not found: {npz_path} or {pt_path} (the reference's "
-            "pretrained/ checkpoint, or its conversion by the JAX package)"
+            f"pretrained checkpoint not found in {pretrained_dir}: {run}{base}.npz or "
+            f"{base}.pt (the reference's pretrained/ checkpoint, or its conversion by the "
+            "JAX package)"
         )
     return from_pt(_load_pt_state(pt_path))
 
@@ -168,17 +269,20 @@ def build_frozen_encoders(cfg, pretrained_dir: Optional[str] = None) -> Dict[str
     loaded strictly from ``pretrained_dir`` (JAX ``build_frozen_encoders``
     :285-370):
 
-    - ``chord_enc`` for a chord condition with ``use_enc``, from ``chd8bar.npz``
-      (the tree, or its ``chord_enc`` subtree) or ``chd8bar.pt`` (the
-      reference chord VAE, encoder under ``chord_enc.``);
+    - ``chord_enc`` for a chord condition with ``use_enc``, from ``chd8bar/``
+      (a ``chd_8bar`` run directory of the port's trainer: its ``chord_enc.``
+      weights), ``chd8bar.npz`` (the tree, or its ``chord_enc`` subtree) or
+      ``chd8bar.pt`` (the reference chord VAE, encoder under ``chord_enc.``);
     - ``txt_enc`` for a texture condition with ``use_enc``, from
       ``polydis.npz`` (the tree, or its ``rhy_encoder`` subtree) or
       ``polydis.pt`` (the reference PolyDis, encoder under ``rhy_encoder.``);
-    - ``pnotree_enc`` for ``cond_type: pnotree``, from ``pnotree.npz`` or
-      ``pnotree.pt`` (the reference PianoTree VAE).
+    - ``pnotree_enc`` for ``cond_type: pnotree``, from ``pnotree/`` (a
+      ``pnotree_vae`` run directory: its ``pnotree_enc.`` weights),
+      ``pnotree.npz`` or ``pnotree.pt`` (the reference PianoTree VAE).
 
-    JAX run directories of a ``chd_8bar`` or ``pnotree_vae`` training are not
-    read yet (``ROADMAP.md`` item 15)."""
+    A run directory's ``params.yaml`` must name its model (``chd_8bar``,
+    ``pnotree_vae``). JAX orbax run directories are not read (``ROADMAP.md``
+    item 15)."""
     cond_type = cfg.get("cond_type", "chord")
     use_enc = bool(cfg.get("use_enc", cond_type == "pnotree"))
     encoders: Dict[str, nn.Module] = {}

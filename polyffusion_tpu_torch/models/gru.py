@@ -57,3 +57,12 @@ class BiGRU(nn.GRU):
             h = torch.where((t < lengths)[:, None], (1.0 - z) * n + z * h, h)
             outs[t] = h
         return torch.stack(outs, dim=1), h
+
+
+def gru_cell(gru: nn.GRU, x: torch.Tensor, h: torch.Tensor, sfx: str = "") -> torch.Tensor:
+    """One step of ``gru``'s layer 0 (``sfx`` "_reverse" for its backward
+    direction) from state ``h``: JAX ``gru_cell_apply`` (:22-32) on the same
+    parameters, for decoders that feed each step's output back as the next
+    input."""
+    return torch.gru_cell(x, h, *(getattr(gru, f"{name}_l0{sfx}") for name in
+                                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))

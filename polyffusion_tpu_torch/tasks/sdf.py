@@ -23,6 +23,17 @@ COND_TYPES = ("chord", "txt", "pnotree", "chord+txt")
 SEG_STEPS = 32  # the encoders' 2-bar segment, in 16th-note steps
 
 
+def refuse_unported_trainer_keys(cfg) -> None:
+    """``remat`` (JAX ``tasks/sdf.py:218-221``) and ``legacy_checkpoints`` (JAX
+    ``train/loop.py:128-160``) are not ported: a run that sets either would
+    compute or write something other than what it asked for. A key set to
+    false asks for nothing."""
+    keys = [key for key in ("remat", "legacy_checkpoints") if cfg.get(key) not in (None, False)]
+    if keys:
+        raise NotImplementedError(
+            f"{', '.join(keys)}: not ported yet (ROADMAP.md item 19)")
+
+
 class StepNoise(NamedTuple):
     """The randomness of one loss evaluation: per-sample timesteps, the
     noise, the batch's CFG-dropout coin and ``mix2``'s two coins that drop
@@ -76,6 +87,7 @@ class SDFTask:
         if cfg.get("concat_blurry", False):
             raise NotImplementedError(
                 "concat_blurry (sdf_concat) is not ported yet (ROADMAP.md item 8)")
+        refuse_unported_trainer_keys(cfg)
         distilled = [key for key in ("v_prediction", "distill_grid", "distilled_scale")
                      if cfg.get(key) not in (None, False)]
         if distilled:
@@ -83,6 +95,7 @@ class SDFTask:
                 f"{', '.join(distilled)}: distilled (v-prediction) models are not ported "
                 "yet (ROADMAP.md item 9)")
         self.cond_mode = cfg.get("cond_mode", "cond")
+        self.bf16 = bool(cfg.get("bf16", False))
         self.use_enc = bool(cfg.get("use_enc", self.cond_type == "pnotree"))
         needed = {
             "chord_enc": "chord" in self.cond_type and self.use_enc,
@@ -120,7 +133,7 @@ class SDFTask:
         self._place()
 
     def _place(self) -> None:
-        if self.cfg.get("bf16", False) and not self.training:
+        if self.bf16 and not self.training:
             cast_sampling_params(self.unet)
         self.unet.to(self.device).train(self.training)
         self.unet.prepare_gn_conv()
@@ -211,6 +224,11 @@ class SDFTask:
     # -- training ---------------------------------------------------------------
 
     @property
+    def model(self) -> UNetModel:
+        """The trainable module: the UNet (the encoders are frozen)."""
+        return self.unet
+
+    @property
     def used_batch_fields(self):
         """Batch fields the loss reads: the feeder sends placeholders for the
         rest (``data/loader.py:DeviceFeeder``)."""
@@ -223,9 +241,10 @@ class SDFTask:
             fields.add("pnotree")
         return fields
 
-    def draw_noise(self, batch, generator: torch.Generator) -> StepNoise:
+    def draw_noise(self, batch, generator: torch.Generator, sched=None) -> StepNoise:
         """The CFG coin, then t and the noise, then the two ``mix2`` coins,
-        from ``generator`` on the device."""
+        from ``generator`` on the device (``sched``, the trainer's scheduled
+        values, steers nothing here)."""
         drop = self.draw_drop(generator)
         t, noise = draw_t_noise(self.schedule.n_steps, tuple(batch[0].shape), generator)
         return StepNoise(t, noise, drop, self.draw_drop(generator), self.draw_drop(generator))

@@ -7,7 +7,10 @@
   written at every save, for resume (the reference's save_last=True);
 - a NaN-loss check (raises, like ``lightning_learner.py:29-33``) at logging
   boundaries only, so that no step waits for the card;
-- metrics to stdout and ``metrics.jsonl``, with ``steps_per_sec``.
+- metrics to stdout and ``metrics.jsonl``, with ``steps_per_sec``;
+- an optional ``ParameterScheduler`` (teacher forcing) whose values for the
+  current step reach the task's ``draw_noise``; validation runs it in eval
+  mode, which pins teacher forcing to its floor.
 """
 
 from __future__ import annotations
@@ -49,12 +52,17 @@ class Trainer:
         log_every: int = 100,
         keep_checkpoints: int = 3,
         save_every: int = 1,
+        param_scheduler=None,
     ):
-        """``task`` must hold fp32 weights (built with ``training=True``).
-        ``save_every``: validate and checkpoint every N epochs (default 1, the
-        reference's per-epoch cadence; the final epoch always saves)."""
+        """``task`` must hold fp32 weights (built with ``training=True``); the
+        trainer trains ``task.model``, in bf16 over fp32 masters where
+        ``task.bf16``. ``save_every``: validate and checkpoint every N epochs
+        (default 1, the reference's per-epoch cadence; the final epoch always
+        saves). ``param_scheduler``: a ``train.schedulers.ParameterScheduler``
+        or None."""
         self.task = task
         self.cfg = cfg
+        self.param_scheduler = param_scheduler
         self.max_steps = max_steps
         self.log_every = log_every
         self.keep_checkpoints = keep_checkpoints
@@ -128,13 +136,13 @@ class Trainer:
     def fit(self, train_dl, val_dl, seed: int = 0, resume: bool = True) -> TrainState:
         cfg = self.cfg
         state = create_state(
-            self.task.unet,
+            self.task.model,
             cfg.learning_rate,
             cfg.get("max_grad_norm", 10.0),
-            bf16=bool(cfg.get("bf16", False)),
+            bf16=self.task.bf16,
             ema_decay=self.ema_decay,
         )
-        print(f"[model] {param_count(self.task.unet) / 1e6:.2f}M trainable params")
+        print(f"[model] {param_count(self.task.model) / 1e6:.2f}M trainable params")
         if resume:
             state = self.try_restore(state)
         logger = MetricsLogger(self.output_dir)
@@ -151,8 +159,10 @@ class Trainer:
         for epoch in range(max_epoch):
             if done:
                 break
+            if self.param_scheduler is not None:
+                self.param_scheduler.train()
             for batch in train_dl:
-                metrics = self.train_step(state, batch, seed)
+                metrics = self.train_step(state, batch, seed, sched=self._sched(state.step))
                 if state.step % self.log_every == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}  # waits for the card
                     if not math.isfinite(metrics["loss"]):
@@ -174,11 +184,17 @@ class Trainer:
                 # validation is not training time
                 window_t0, window_step0 = time.perf_counter(), state.step
 
+    def _sched(self, step: int) -> Optional[Dict[str, float]]:
+        return None if self.param_scheduler is None else self.param_scheduler.step(step)
+
     def validate(self, state: TrainState, val_dl, epoch: int, logger: MetricsLogger) -> float:
+        if self.param_scheduler is not None:
+            self.param_scheduler.eval()
+        sched = self._sched(state.step)
         agg: Dict[str, float] = {}
         n = 0
         for batch in val_dl:
-            for k, v in self.eval_step(batch).items():
+            for k, v in self.eval_step(batch, sched).items():
                 agg[k] = agg.get(k, 0.0) + float(v)
             n += 1
         if n == 0:

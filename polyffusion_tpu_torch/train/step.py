@@ -25,17 +25,19 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 
 def make_train_step(task, ema_decay: Optional[float] = None):
-    """Returns ``step_fn(state, batch, seed, noise=None) -> metrics``: one
-    update of ``state`` in place. ``noise`` (the task's ``StepNoise``) replaces
-    what the step would draw from ``step_generator(seed, state.step)``.
+    """Returns ``step_fn(state, batch, seed, noise=None, sched=None) ->
+    metrics``: one update of ``state`` in place. ``noise`` (the task's
+    randomness, e.g. ``StepNoise``) replaces what the step would draw from
+    ``step_generator(seed, state.step)``; ``sched`` (the step's scheduled
+    values, e.g. teacher-forcing rates) reaches the task's ``draw_noise``.
 
     ``ema_decay``: when set (and ``state.ema`` is populated), the step also
     keeps an fp32 exponential moving average of the masters, taken after the
     update: e * d + p * (1 - d)."""
 
-    def step(state: TrainState, batch, seed: int, noise=None) -> Dict[str, torch.Tensor]:
+    def step(state: TrainState, batch, seed: int, noise=None, sched=None) -> Dict[str, torch.Tensor]:
         if noise is None:
-            noise = task.draw_noise(batch, step_generator(seed, state.step, task.device))
+            noise = task.draw_noise(batch, step_generator(seed, state.step, task.device), sched)
         weights = state.weights
         weights.zero_grad()
         loss, metrics = task.loss_fn(batch, noise)
@@ -56,13 +58,14 @@ def make_train_step(task, ema_decay: Optional[float] = None):
 
 
 def make_eval_step(task):
-    """Deterministic eval step: ``eval_fn(batch) -> metrics``, each batch with
-    the randomness of ``step_generator(0, 0)`` (the JAX eval step takes one
-    fixed key), without gradients."""
+    """Deterministic eval step: ``eval_fn(batch, sched=None) -> metrics``, each
+    batch with the randomness of ``step_generator(0, 0)`` (the JAX eval step
+    takes one fixed key), so the same coins for every batch at the same
+    ``sched``, without gradients."""
 
-    def step(batch) -> Dict[str, torch.Tensor]:
+    def step(batch, sched=None) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
-            noise = task.draw_noise(batch, step_generator(0, 0, task.device))
+            noise = task.draw_noise(batch, step_generator(0, 0, task.device), sched)
             _, metrics = task.loss_fn(batch, noise)
         return dict(metrics)
 

@@ -637,3 +637,62 @@ def test_cuda_gn_conv_refuses_strided_input():
     with pytest.raises(ValueError, match="contiguous"):
         gn_silu_conv3x3(d["x"].transpose(2, 3), d["a"], d["off"], d["w"], d["b"])
     assert gn_silu_conv3x3.launches == before
+
+
+# -- the VAE pretraining tasks (no kernel of the port: plain PyTorch on the card) --------
+
+
+def _vae_batch(name, b, g):
+    """A (prmat2c, pnotree, chord, prmat) batch with the task's field only."""
+    empty = torch.zeros(b, 1)
+    if name == "chd_8bar":
+        chord = torch.zeros(b, 32, 36)
+        rows = torch.arange(32)
+        for i in range(b):
+            chord[i, rows, torch.randint(0, 12, (32,), generator=g)] = 1
+            chord[i, :, 12:24] = torch.randint(0, 2, (32, 12), generator=g).float()
+            chord[i, rows, 24 + torch.randint(0, 12, (32,), generator=g)] = 1
+        return empty, empty, chord, empty
+    pt = torch.full((b, 128, 20, 6), 2, dtype=torch.long)
+    pt[..., 0] = 130
+    for i in range(b):
+        for t in range(128):
+            n = int(torch.randint(0, 9, (), generator=g))
+            pt[i, t, :n, 0] = torch.randint(0, 128, (n,), generator=g)
+            pt[i, t, :n, 1:] = torch.randint(0, 2, (n, 5), generator=g)
+            if n < 20:
+                pt[i, t, n, 0] = 129
+    return empty, pt, empty, empty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chd_8bar", "pnotree_vae"])
+def test_cuda_vae_loss_and_gradients_match_the_cpu(name):
+    """One fp32 loss and its gradients, card against CPU: the same weights,
+    batch, noise and teacher-forcing coins, at a small width (``chd_8bar``
+    hidden 32; ``pnotree_vae`` at its fixed widths, one item of four
+    segments), within the limits of ``chip_smoke.py``'s step check (loss rel
+    1e-5, gradients rel 1e-4 in norm per tensor)."""
+    from polyffusion_tpu_torch.main import build_task
+
+    _card()
+    cfg = load_params(name)
+    if name == "chd_8bar":
+        cfg.update(chd_hidden_dim=32, chd_z_input_dim=32, chd_z_dim=16)
+    g = torch.Generator().manual_seed(1)
+    batch = _vae_batch(name, 4 if name == "chd_8bar" else 1, g)
+    out = {}
+    for device in ("cuda", "cpu"):
+        task = build_task(cfg, device=device, seed=2)
+        noise = task.draw_noise(batch, torch.Generator().manual_seed(3),
+                                {"tfr_chd": 0.5, "tfr_pnt1": 0.8, "tfr_pnt2": 0.8})
+        loss, metrics = task.loss_fn(tuple(t.to(device) for t in batch),
+                                     type(noise)(*(t.to(device) for t in noise)))
+        loss.backward()
+        out[device] = ({k: v.item() for k, v in metrics.items()},
+                       {k: p.grad.cpu() for k, p in task.model.named_parameters()})
+    (got_m, got_g), (want_m, want_g) = out["cuda"], out["cpu"]
+    for k, w in want_m.items():
+        assert abs(got_m[k] - w) <= 1e-5 * abs(w), (k, got_m[k], w)
+    for k, w in want_g.items():
+        assert (got_g[k] - w).norm() <= 1e-4 * w.norm() + 1e-9, k
