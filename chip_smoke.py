@@ -61,7 +61,27 @@ after:
   as frozen encoders (``<pretrained>/chd8bar/``, ``<pretrained>/pnotree/``):
   ``sdf_chd8bar`` and ``sdf_pnotree`` trained 4 steps each from them, and
   each task's ``encode_cond`` on the card against the trained encoder on the
-  CPU.
+  CPU;
+- distillation (``polyffusion_tpu_torch.distill``) of the training path's run
+  directory, full width, bf16, batch 16: stage A and the halving phases 8 ->
+  4 -> 2, then chain mode 2 -> 1 from its output (per step kernel 1 at the
+  teacher's and the student's forwards, 22 guided and 33 halving, kernel 2
+  at 11 and kernel 6 at 56 backwards); the inference CLI on both students
+  (``--ddim --uncond_scale 1``), which pin their grids; warm guided and
+  halving steps timed (host clock, CUDA events) and profiled (idle share);
+  warm batch-16 requests of the 2-step and 1-step students beside the
+  teacher's DDIM-50 CFG-5 request;
+- the blurry-image condition, ``sdf_concat`` in bf16 at its batch 16: 4 steps
+  through ``polyffusion_tpu_torch.main``, the inference CLI's "below"
+  inpainting on its run directory at DDIM-50 and at DDPM-1000 (kernels 1 and
+  7), and a DDIM-50 request at batch 16.
+
+Before the main paths it also holds, card against CPU in fp32 at full width
+with a planted fault each: ``sdf_concat``'s ``blurry_image``, UNet eval and a
+DDPM RePaint run with the blurry channels (fault: the channels zeroed);
+DPM-Solver++ order 2 with a mask (fault: order 1); one guided and one halving
+distillation loss with the student's gradients (faults: the teacher at scale
+1; its second step at the student's level).
 
 Every phase raises on failure and the script then exits non-zero without a
 result. It imports nothing of JAX or of the JAX package.
@@ -212,6 +232,39 @@ CHD_STEPS, CHD_RESUME_STEPS, CHD_VAL_SONGS = 30, 6, 8
 PNO_BATCH, PNO_STEPS, PNO_RESUME_STEPS, PNO_CHECK_BATCH = 32, 3, 2, 1
 SDF_FROM_RUN_STEPS = 4
 VAE_PROFILE = {"chd_8bar": (5, 3), "pnotree_vae": (2, 1)}  # (timed, profiled) warm steps
+# The blurry-image condition (sdf_concat, fp32 full width) card vs CPU: the UNet
+# eval with the blurry channels at the UNet tolerance, a DDPM RePaint run at the
+# sampler tolerance (PAINT_*), and blurry_image itself (an antialiased bicubic
+# downsample and a nearest upsample; the CPU and the card sum the same 16 taps
+# in other orders). Planted fault: the card's blurry channels zeroed.
+BLUR_ATOL = 1e-6
+# DPM-Solver++ (order 2) on a DPMPP_STEPS-step tau grid from its top, full width,
+# fp32, CFG 5, a "below" mask, card vs CPU at the sampler tolerance; planted
+# fault: the card at order 1 (no second-order correction)
+DPMPP_STEPS = 4
+# Distillation card vs CPU, fp32 full width, batch 2: one guided step
+# (eps_guided teacher at DISTILL_GUIDE) and one halve step (v teacher, the
+# 8 -> 4 phase), at the train step's limits (STEP_LOSS_RTOL, STEP_GRAD_RTOL);
+# planted faults: the card's teacher at scale 1, and its second teacher step at
+# the student's level instead of the intermediate one
+DISTILL_GUIDE = 5.0
+DISTILL_CHECK_BATCH = 2
+# The distill CLI on the training path's run directory (full width, bf16, batch
+# 16): stage A and the phases 8 -> 4 -> 2, then chain mode 2 -> 1. Per step:
+# kernel 1 at the teacher's passes and the student's forward (guided: one
+# double-batched teacher call, 11 + 11; halve: two teacher calls, 22 + 11),
+# kernel 2 at the student's 11 attention backwards, kernel 6 at its 56
+# GroupNorm backwards; a validation batch runs the forwards only
+DISTILL_BASE, DISTILL_END, DISTILL_CHAIN_END = 8, 2, 1
+DISTILL_STAGE_A_STEPS, DISTILL_PHASE_STEPS = 4, 3
+GUIDED_FWD, HALVE_FWD = 2 * ATTENTION_SITES, 3 * ATTENTION_SITES
+DISTILL_PROFILE = (5, 3)  # (timed, profiled) warm distillation steps per mode
+STUDENT_BATCH = 16
+# sdf_concat end to end, bf16 at its batch 16: CONCAT_STEPS steps through the
+# training CLI, then the inference CLI's "below" inpainting at DDIM-50 and at
+# DDPM-1000 (kernels 1 and 7), 2 segments at scale 1, and one DDIM-50 request
+# at batch 16
+CONCAT_STEPS = 4
 GN_CONV_SITES, GN_CONV_TWO_INPUT = 44, 12  # per UNet eval: 22 ResBlocks x 2; decoder in_layers
 GN_CONV_BATCH = 64
 FUSED_TRAIN_STEPS = 3  # bf16 train steps through kernel 4 (counted per step)
@@ -309,6 +362,12 @@ def check_packed_attention():
         (16, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
         (16, 1024, 4, 64, torch.float32, FP32_ATOL, FP32_RTOL),
         (16, 256, 4, 64, torch.float32, FP32_ATOL, FP32_RTOL),
+        # the distillation teacher's CFG double batch at batch 16 (and a batch-16
+        # request at CFG 5), then an sdf_concat request of 2 segments at scale 1
+        (32, 1024, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        (32, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        (2, 1024, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        (2, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
     ]
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -2081,17 +2140,9 @@ def check_vae_steps_against_cpu(work):
 def run_training_cli(counters, args, label):
     """``polyffusion_tpu_torch.main`` with the launch counts set to 0 just
     before and read just after; returns (final state, seconds, launches)."""
-    import torch
-
     from polyffusion_tpu_torch.main import main as train_main
 
-    zero_counts(counters)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = train_main(args)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    got = {name: fn.launches for name, fn in counters.items()}
+    state, secs, got, _ = run_with_counts(counters, train_main, args)
     log(f"[pretrain] {label}: ended at step {state.step} in {secs:.3f} s (with setup), "
         f"launches {got}")
     return state, secs, got
@@ -2279,6 +2330,542 @@ def drive_sdf_from_runs(counters, work):
     return launches
 
 
+def concat_cfg(bf16: bool):
+    from polyffusion_tpu_torch.config import load_params
+
+    cfg = load_params("sdf_concat")
+    cfg.bf16 = bf16
+    return cfg
+
+
+def concat_task(device, seed, training=False):
+    """A full-width ``sdf_concat`` task (no encoder: the raw chord, uncond)."""
+    import torch
+
+    from polyffusion_tpu_torch.tasks import SDFTask
+
+    return SDFTask(concat_cfg(bf16=False), device=device,
+                   generator=torch.Generator().manual_seed(seed), training=training)
+
+
+def check_concat_against_cpu():
+    """``sdf_concat`` (4 input channels) in fp32 at full width, card vs CPU:
+    ``blurry_image`` of a 3 % roll (BLUR_ATOL); one UNet eval at batch 2 on
+    x_t and those blurry channels (UNet tolerance); a DDPM RePaint run from
+    PAINT_T_START at repaint_n PAINT_REPAINT_N with the blurry channels
+    (kernels 1 and 7; sampler tolerance), under the same replayed noises. The
+    planted fault: the card's blurry channels zeroed, which each limit must
+    catch."""
+    import torch
+
+    from polyffusion_tpu_torch.diffusion import sampler as S
+    from polyffusion_tpu_torch.inference import get_mask
+    from polyffusion_tpu_torch.ops.repaint_epilogue import fused_repaint_epilogue
+    from polyffusion_tpu_torch.tasks.sdf import blurry_image
+
+    cfg = concat_cfg(bf16=False)
+    rng = np.random.default_rng(11)
+    orig = (rng.random((2, 2, 128, 128)) > 0.97).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((2, 2, 128, 128)).astype(np.float32))
+    t = torch.tensor([981, 401], dtype=torch.int32)
+    cond = -torch.ones((2, 1, cfg.d_cond))  # cond_mode uncond
+    noise = torch.from_numpy(rng.standard_normal(
+        (PAINT_T_START + 1, PAINT_REPAINT_N, 3, 2, 128, 128, 2)).astype(np.float32))
+    mask = torch.from_numpy(nhwc(get_mask(orig, "below")))
+    orig_t = torch.from_numpy(orig)
+    out = {}
+    for device in ("cuda", "cpu"):
+        task = concat_task(device, seed=12)
+        blur = blurry_image(orig_t.to(device), cfg.concat_ratio)
+        runs = {"sound": blur}
+        if device == "cuda":
+            runs["fault"] = torch.zeros_like(blur)
+        res = {}
+        for name, cc in runs.items():
+            with torch.inference_mode():
+                eps = task.apply_eps(torch.cat([x.to(device), cc], dim=1), t.to(device),
+                                     cond.to(device)).cpu()
+            before = fused_repaint_epilogue.launches
+            t0 = time.perf_counter()
+            paint = S.ddpm_paint(task.apply_eps, task.schedule, x.permute(0, 2, 3, 1).to(device),
+                                 cond.to(device), PAINT_T_START, orig=nhwc_t(orig_t).to(device),
+                                 mask=mask.to(device), cond_concat=nhwc_t(cc),
+                                 repaint_n=PAINT_REPAINT_N, noise_override=noise.to(device)).cpu()
+            res[name] = (eps, paint, fused_repaint_epilogue.launches - before,
+                         time.perf_counter() - t0)
+        out[device] = (blur.cpu(), res)
+        del task
+    (blur_gpu, got), (blur_cpu, want) = out["cuda"], out["cpu"]
+    blur_err = (blur_gpu - blur_cpu).abs().max().item()
+    blur_fault = blur_cpu.abs().max().item() / BLUR_ATOL
+    eps_ratio = limit_ratio(got["sound"][0], want["sound"][0], UNET_ATOL, UNET_RTOL)
+    eps_fault = limit_ratio(got["fault"][0], want["sound"][0], UNET_ATOL, UNET_RTOL)
+    paint_ratio = limit_ratio(got["sound"][1], want["sound"][1], PAINT_ATOL, PAINT_RTOL)
+    paint_fault = limit_ratio(got["fault"][1], want["sound"][1], PAINT_ATOL, PAINT_RTOL)
+    launches = got["sound"][2]
+    log(f"[concat] blurry_image (2, 2, 128, 128) at ratio {cfg.concat_ratio} card vs CPU: "
+        f"max_abs_err {blur_err:.3g} (atol {BLUR_ATOL}; zeroed: {blur_fault:.3g} x the limit)")
+    log(f"[concat] full-width fp32 sdf_concat UNet eval (B=2, 4 input channels) card vs CPU: "
+        f"{eps_ratio:.3g} x the limit (atol {UNET_ATOL}, rtol {UNET_RTOL}); blurry channels "
+        f"zeroed on the card: {eps_fault:.3g} x")
+    log(f"[concat] full-width fp32 RePaint with the blurry channels (B=2, scale 1, below, "
+        f"repaint_n {PAINT_REPAINT_N}, steps {PAINT_T_START}..0) card vs CPU: {paint_ratio:.3g} x "
+        f"the limit (atol {PAINT_ATOL}, rtol {PAINT_RTOL}); zeroed on the card: "
+        f"{paint_fault:.3g} x; epilogue launches {launches}; card {got['sound'][3]:.2f} s, CPU "
+        f"{want['sound'][3]:.2f} s")
+    if not (blur_err <= BLUR_ATOL and eps_ratio <= 1.0 and paint_ratio <= 1.0
+            and bool(torch.isfinite(got["sound"][1]).all())):
+        raise AssertionError("sdf_concat on the card disagrees with the CPU")
+    if not (blur_fault > 1.0 and eps_fault > 1.0 and paint_fault > 1.0):
+        raise AssertionError("a limit of the sdf_concat check does not catch zeroed blurry "
+                             "channels")
+    if launches != (PAINT_T_START + 1) * PAINT_REPAINT_N:
+        raise AssertionError(f"the card's RePaint run launched the epilogue {launches} times")
+
+
+def nhwc_t(x):
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def check_dpmpp_against_cpu():
+    """DPM-Solver++ (order 2) at full width in fp32, batch 1 doubled by CFG 5, a
+    "below" mask under a fixed orig noise, over a DPMPP_STEPS-step tau grid
+    from its top: the card (kernel 1) against the CPU (its plain version). The
+    planted fault: the card at order 1, which each later transition's
+    second-order correction must tell apart."""
+    import torch
+
+    from polyffusion_tpu_torch.diffusion import sampler as S
+    from polyffusion_tpu_torch.diffusion.schedule import make_ddim_schedule
+    from polyffusion_tpu_torch.inference import get_mask
+
+    cfg = full_cfg(bf16=False)
+    rng = np.random.default_rng(13)
+    orig = (rng.random((1, 2, 128, 128)) > 0.97).astype(np.float32)
+    arrays = dict(
+        x=rng.standard_normal((1, 128, 128, 2)).astype(np.float32),
+        cond=rng.standard_normal((1, 1, cfg.d_cond)).astype(np.float32),
+        orig=nhwc(orig), mask=nhwc(get_mask(orig, "below")),
+        orig_noise=rng.standard_normal((1, 128, 128, 2)).astype(np.float32),
+    )
+    out = {}
+    for device in ("cuda", "cpu"):
+        task = make_task(cfg, device, seed=14)
+        dd = make_ddim_schedule(task.schedule, DPMPP_STEPS)
+        a = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        res = {}
+        for name, order in (("sound", 2), ("fault", 1)) if device == "cuda" else (("sound", 2),):
+            t0 = time.perf_counter()
+            res[name] = (S.dpmpp_paint(task.apply_eps, dd, a["x"], a["cond"], DPMPP_STEPS - 1,
+                                       orig=a["orig"], mask=a["mask"],
+                                       orig_noise=a["orig_noise"], uncond_scale=5.0,
+                                       uncond_cond=-torch.ones_like(a["cond"]),
+                                       order=order).cpu(), time.perf_counter() - t0)
+        out[device] = res
+        del task, a
+    got, want = out["cuda"], out["cpu"]["sound"][0]
+    ratio = limit_ratio(got["sound"][0], want, PAINT_ATOL, PAINT_RTOL)
+    fault = limit_ratio(got["fault"][0], want, PAINT_ATOL, PAINT_RTOL)
+    log(f"[dpmpp] full-width fp32 DPM-Solver++ order 2 (B=1, CFG 5, below, {DPMPP_STEPS} steps) "
+        f"card vs CPU: {ratio:.3g} x the limit (atol {PAINT_ATOL}, rtol {PAINT_RTOL}), |out| max "
+        f"{want.abs().max().item():.3g}; order 1 on the card: {fault:.3g} x; card "
+        f"{got['sound'][1]:.2f} s (first call), CPU {out['cpu']['sound'][1]:.2f} s")
+    if not (ratio <= 1.0 and bool(torch.isfinite(got["sound"][0]).all())):
+        raise AssertionError("the full-width DPM-Solver++ run on the card disagrees with the CPU")
+    if not fault > 1.0:
+        raise AssertionError("the DPM-Solver++ limit does not catch order 1")
+
+
+def check_distill_against_cpu():
+    """One fp32 distillation loss and the student's gradients at full width,
+    batch DISTILL_CHECK_BATCH, card (kernels 1, 2, 6) against CPU (their plain
+    versions): a guided step (the eps teacher's CFG at DISTILL_GUIDE in one
+    double batch) and a halve step (a v teacher, the 8 -> 4 phase); the same
+    student and teacher weights, batch and draws; the loss within
+    STEP_LOSS_RTOL, each gradient within STEP_GRAD_RTOL in norm. Planted
+    faults, each of which the loss limit must catch: the card's teacher at
+    scale 1 (guided), its second teacher step at the student's level (halve)."""
+    import torch
+
+    from polyffusion_tpu_torch.diffusion.progressive import halving_grids, phase_tables
+    from polyffusion_tpu_torch.diffusion.schedule import make_schedule
+    from polyffusion_tpu_torch.tasks.distill import DistillTask
+
+    cfg = full_cfg(bf16=False)
+    rng = np.random.default_rng(15)
+    b = DISTILL_CHECK_BATCH
+    x0 = torch.from_numpy((rng.random((b, 2, 128, 128)) > 0.97).astype(np.uint8))
+    chords = torch.from_numpy(random_chords(rng, b))
+    teacher = make_task(cfg, "cpu", seed=16).unet.state_dict()
+    tables = phase_tables(make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end),
+                          halving_grids(cfg.n_steps, DISTILL_BASE, DISTILL_END)[0])
+    faults = {"guided": dict(guide_scale=1.0),
+              "halve": dict(tables=tables._replace(tau_mid=tables.tau))}
+    for mode, kind in (("guided", "eps_guided"), ("halve", "v")):
+        kw = dict(guide_scale=DISTILL_GUIDE, tables=tables if mode == "halve" else None)
+        noise = None
+        out = {}
+        for device in ("cuda", "cpu"):
+            base = make_task(cfg, device, seed=17, training=True)
+            task = DistillTask(base, teacher, kw["guide_scale"], mode, kind, tables=kw["tables"])
+            if noise is None:
+                noise = task.draw_noise((x0,), torch.Generator().manual_seed(18))
+            batch = (x0.to(device), None, chords.to(device), None)
+            dn = type(noise)(*(v.to(device) for v in noise))
+            t0 = time.perf_counter()
+            loss, _ = task.loss_fn(batch, dn)
+            loss.backward()
+            grads = {k: p.grad.cpu() for k, p in task.model.named_parameters()}
+            secs = time.perf_counter() - t0
+            fault = None
+            if device == "cuda":
+                fkw = dict(kw, **faults[mode])
+                planted = DistillTask(base, teacher, fkw["guide_scale"], mode, kind,
+                                      tables=fkw["tables"])
+                with torch.no_grad():
+                    fault = planted.loss_fn(batch, dn)[0].item()
+                del planted
+            out[device] = (loss.item(), grads, secs, fault)
+            del base, task
+        (got, got_g, t_gpu, fault), (want, want_g, t_cpu, _) = out["cuda"], out["cpu"]
+        loss_err, fault_err = abs(got - want) / abs(want), abs(fault - want) / abs(want)
+        grad_ratio, worst = 0.0, ""
+        for k, w in want_g.items():
+            r = ((got_g[k] - w).norm() / (STEP_GRAD_RTOL * w.norm() + 1e-9)).item()
+            if r > grad_ratio:
+                grad_ratio, worst = r, k
+        log(f"[distill] full-width fp32 {mode} step ({kind} teacher, B={b}) card vs CPU: loss "
+            f"{got:.7g} vs {want:.7g} (rel {loss_err:.3g}, limit {STEP_LOSS_RTOL}); gradients "
+            f"per tensor {grad_ratio:.3g} x the limit (rel {STEP_GRAD_RTOL} in norm; worst "
+            f"{worst}); planted fault ({', '.join(faults[mode])}): loss rel {fault_err:.3g}; "
+            f"card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
+        if not (loss_err <= STEP_LOSS_RTOL and grad_ratio <= 1.0 and np.isfinite(got)):
+            raise AssertionError(f"the distillation {mode} step on the card disagrees with the CPU")
+        if not fault_err > STEP_LOSS_RTOL:
+            raise AssertionError(f"the distillation {mode} loss limit does not catch its fault")
+
+
+def run_with_counts(counters, fn, *args):
+    """``fn(*args)`` with the launch counts set to 0 just before and read just
+    after, its stdout echoed; returns (result, seconds, launches, stdout)."""
+    import contextlib
+    import io
+
+    import torch
+
+    zero_counts(counters)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sys.stdout.write(buf.getvalue())
+    return result, secs, {name: c.launches for name, c in counters.items()}, buf.getvalue()
+
+
+def distill_want(counters, stages, val_batches):
+    """Expected launches of a distill CLI run of ``stages`` ((mode, steps)
+    each), each stage validating once on ``val_batches`` batches."""
+    k1 = k2 = 0
+    for mode, steps in stages:
+        k1 += (GUIDED_FWD if mode == "guided" else HALVE_FWD) * (steps + val_batches)
+        k2 += ATTENTION_SITES * steps
+    return dict({name: 0 for name in counters}, packed_attention=k1, packed_attention_bwd=k2,
+                gn_bwd=GROUPNORM_SITES * k2 // ATTENTION_SITES)
+
+
+def stage_ms(run_dir):
+    """The last logged step's ms (host clock, ``metrics.jsonl``) of a
+    distillation stage's run directory, and its losses."""
+    records = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    train = [r for r in records if "train/loss" in r]
+    losses = [r[k] for r in records for k in ("train/loss", "val/loss") if k in r]
+    if not (train and np.isfinite(losses).all()):
+        raise AssertionError(f"{run_dir}: bad metrics {records}")
+    return 1e3 / train[-1]["steps_per_sec"], losses
+
+
+def drive_distill_cli(counters, work):
+    """``python -m polyffusion_tpu_torch.distill`` on the training path's run
+    directory (full width, bf16, batch 16): stage A (DISTILL_STAGE_A_STEPS
+    steps) and the halving phases 8 -> 4 -> 2 (DISTILL_PHASE_STEPS each), then
+    chain mode 2 -> 1 from its output; then the inference CLI on each output
+    directory (``--ddim --uncond_scale 1``, 2 segments), which must pin the
+    stored grid. Each run with the launch counts set to 0 just before it and
+    read just after. Returns the launches by run and each stage's ms per step."""
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.data import BatchLoader, SegmentDataset
+    from polyffusion_tpu_torch.diffusion.progressive import halving_grids
+    from polyffusion_tpu_torch.distill import main as distill_main
+    from polyffusion_tpu_torch.inference import main as infer_main
+
+    run, data, pretrained = (os.path.join(work, d) for d in ("run", "songs", "pretrained"))
+    out, chained = os.path.join(work, "distilled"), os.path.join(work, "distilled_1")
+    _, val_ds = SegmentDataset.train_val_from_dir(data, 0.9)
+    val_batches = len(BatchLoader(val_ds, 16))
+    common = ["--data_dir", data, "--pretrained_dir", pretrained, "--log_every", "1", "--seed",
+              "0", "--phase_steps", str(DISTILL_PHASE_STEPS), "--guide_scale", str(DISTILL_GUIDE)]
+    a, p = DISTILL_STAGE_A_STEPS, DISTILL_PHASE_STEPS
+    runs = {
+        "cli": (["--teacher", run, "--output_dir", out, "--base_steps", str(DISTILL_BASE),
+                     "--end_steps", str(DISTILL_END), "--stage_a_steps", str(a)],
+                    [("guided", a), ("halve", p), ("halve", p)]),
+        "cli_chain": (["--teacher", out, "--output_dir", chained, "--end_steps",
+                   str(DISTILL_CHAIN_END)], [("halve", p)]),
+    }
+    launches = {}
+    for name, (extra, stages) in runs.items():
+        cfg, secs, got, _ = run_with_counts(counters, distill_main, common + extra)
+        want = distill_want(counters, stages, val_batches)
+        log(f"[distill] CLI {name} ({' '.join(extra[2:])}): {sum(n for _, n in stages)} steps in "
+            f"{len(stages)} stage(s), {val_batches} val batches each, {secs:.3f} s (with setup), "
+            f"grid {cfg.get('distill_grid')}, launches {got}")
+        if got != want:
+            raise AssertionError(f"expected launches {want}, got {got}")
+        launches[name] = got
+    grid = load_params(os.path.join(out, "params.yaml"))["distill_grid"]
+    grid1 = load_params(os.path.join(chained, "params.yaml"))["distill_grid"]
+    want_grid = [int(t) for t in halving_grids(1000, DISTILL_BASE, DISTILL_END)[-1]]
+    if grid != want_grid or grid1 != grid[1::2]:
+        raise AssertionError(f"stored grids {grid}, {grid1}; expected {want_grid} and its half")
+    stage_dirs = {"stage_a": os.path.join(out, "stage_a"),
+                  "phase_4": os.path.join(out, "phase_4"), "phase_2": os.path.join(out, "phase_2"),
+                  "chain phase_1": os.path.join(chained, "phase_1")}
+    ms = {}
+    for stage, d in stage_dirs.items():
+        ms[stage], losses = stage_ms(d)
+        log(f"[distill] {stage}: last step {ms[stage]:.3f} ms (host clock, metrics.jsonl), "
+            f"losses {[round(x, 5) for x in losses]}")
+
+    zero = {name: 0 for name in counters}
+    for label, d, n in (("student_2", out, DISTILL_END), ("student_1", chained, DISTILL_CHAIN_END)):
+        gen_dir = os.path.join(work, f"gen_{label}")
+        args = ["--chkpt_path", d, "--data_dir", data, "--song_fn", CLI_SONG, "--pretrained_dir",
+                pretrained, "--ddim", "--uncond_scale", "1", "--length", "2", "--output_dir",
+                gen_dir]
+        (gen,), secs, got, text = run_with_counts(counters, infer_main, args)
+        mids = sorted(os.listdir(gen_dir))
+        log(f"[distill] inference CLI on the {label} student (--ddim --uncond_scale 1 --length "
+            f"2): {secs:.3f} s, launches {got}, wrote {mids}")
+        if f"using its {n}-step grid" not in text:
+            raise AssertionError(f"the {label} student's session did not pin its grid")
+        if got != dict(zero, packed_attention=ATTENTION_SITES * n):
+            raise AssertionError(f"expected {ATTENTION_SITES * n} kernel-1 launches, got {got}")
+        if not (len(mids) == 1 and f"ddim{n}_eta0.0_distilled]" in mids[0]
+                and gen.shape == (2, 2, 128, 128) and np.isfinite(gen).all()):
+            raise AssertionError(f"bad student output: {mids}, shape {gen.shape}")
+        launches[f"cli_{label}"] = got
+    return launches, ms
+
+
+def profile_distill_steps(work):
+    """Warm distillation steps at full width, bf16, batch 16 on the card, from
+    the training path's run directory as the teacher: a guided step
+    (eps_guided) and a halve step (v, the 8 -> 4 phase), each mode's ms per
+    step on the host clock and from CUDA events over DISTILL_PROFILE[0] steps,
+    then ``torch.profiler`` over DISTILL_PROFILE[1]: device busy ms and idle
+    share. Returns those numbers by mode."""
+    import types
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.diffusion.progressive import halving_grids, phase_tables
+    from polyffusion_tpu_torch.inference import load_unet_params
+    from polyffusion_tpu_torch.main import build_task
+    from polyffusion_tpu_torch.profile_train import kernel_launches
+    from polyffusion_tpu_torch.profile_unet import breakdown
+    from polyffusion_tpu_torch.tasks.distill import DistillTask
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+
+    run, data, pretrained = (os.path.join(work, d) for d in ("run", "songs", "pretrained"))
+    cfg = load_params(os.path.join(run, "params.yaml"))
+    teacher = load_unet_params(run)
+    batch = tuple(t.cuda() for t in song_batch(data, cfg.batch_size))
+    timed, profiled = DISTILL_PROFILE
+    rows = {}
+    for mode, kind in (("guided", "eps_guided"), ("halve", "v")):
+        base = build_task(cfg, pretrained, device="cuda", seed=0)
+        tables = None
+        if mode == "halve":
+            tables = phase_tables(base.schedule,
+                                  halving_grids(cfg.n_steps, DISTILL_BASE, DISTILL_END)[0])
+        task = DistillTask(base, teacher, DISTILL_GUIDE, mode, kind, tables=tables)
+        state = create_state(task.model, cfg.learning_rate, cfg.max_grad_norm, bf16=task.bf16)
+        step = make_train_step(task)
+
+        def steps(n):
+            for _ in range(n):
+                step(state, batch, seed=0)
+            torch.cuda.synchronize()
+
+        steps(1)  # warm up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        steps(timed)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / timed
+        event_ms = start.elapsed_time(end) / timed
+        # the device's activity only: the host operators' events would slow the
+        # steps and multiply the trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps(profiled)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[distill] {mode} step ({kind} teacher) at batch {cfg.batch_size}, bf16, under "
+            f"torch.profiler ({profiled} warm steps):")
+        averages = prof.key_averages()
+        prof = types.SimpleNamespace(key_averages=lambda: averages)
+        busy_ms = breakdown(prof, wall_ms, profiled, "step")
+        kernels = kernel_launches(prof, profiled)["kernels_per_step"]
+        sys.stdout.flush()
+        rows[mode] = dict(batch=cfg.batch_size, host_ms_per_step=host_ms,
+                          event_ms_per_step=event_ms,
+                          busy_ms_per_step=busy_ms / profiled if busy_ms else None,
+                          idle_share=1 - busy_ms / wall_ms if busy_ms else None,
+                          kernels_per_step=kernels)
+        log(f"[distill] {mode} step: {host_ms:.3f} ms/step host clock, {event_ms:.3f} ms/step "
+            f"CUDA events (mean of {timed}); device busy "
+            f"{f'{busy_ms / profiled:.3f} ms/step' if busy_ms else 'not measured'}, idle share "
+            f"{rows[mode]['idle_share'] if busy_ms else 'not measured'} of the profiled window; "
+            f"{kernels:.0f} device kernels/step")
+        del base, task, state, step
+    return rows
+
+
+def drive_student_requests(counters, work):
+    """Warm requests at batch STUDENT_BATCH through ``InferenceSession`` on the
+    same card: the 2-step and the 1-step student on their grids at scale 1
+    (11 kernel-1 launches per step), and the teacher at DDIM-50 CFG 5 (550).
+    Each with the launch counts set to 0 just before it and read just after.
+    Returns (launches, seconds) by request."""
+    import torch
+
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.inference import (
+        InferenceSession,
+        build_task_for_inference,
+        load_unet_params,
+    )
+
+    pretrained = os.path.join(work, "pretrained")
+    rng = np.random.default_rng(19)
+    chords = torch.from_numpy(random_chords(rng, STUDENT_BATCH))
+    zero = {name: 0 for name in counters}
+    launches, secs = {}, {}
+    for label, d, steps, scale in (("student_2", "distilled", DISTILL_END, 1.0),
+                                   ("student_1", "distilled_1", DISTILL_CHAIN_END, 1.0),
+                                   ("teacher_ddim50_cfg5", "run", 50, CLI_CFG_SCALE)):
+        run_dir = os.path.join(work, d)
+        task = build_task_for_inference(load_params(os.path.join(run_dir, "params.yaml")),
+                                        pretrained)
+        task.load_unet_state(load_unet_params(run_dir))
+        session = InferenceSession(task, use_ddim=True, ddim_steps=None if d != "run" else 50,
+                                   seed=0)
+        cond = task.encode_chord(chords)
+        session.generate(cond, uncond_scale=scale)  # warm: the same shapes
+        gen, secs[label], launches[label], _ = run_with_counts(
+            counters, lambda: session.generate(task.encode_chord(chords), uncond_scale=scale))
+        log(f"[distill] request {label} ({session.ddim_label}, scale {scale}): batch "
+            f"{STUDENT_BATCH}: {secs[label]:.3f} s, {STUDENT_BATCH / secs[label]:.3f} samples/s, "
+            f"launches {launches[label]}")
+        if launches[label] != dict(zero, packed_attention=ATTENTION_SITES * steps):
+            raise AssertionError(f"expected {ATTENTION_SITES * steps} kernel-1 launches, got "
+                                 f"{launches[label]}")
+        if gen.shape != (STUDENT_BATCH, 2, 128, 128) or not np.isfinite(gen).all():
+            raise AssertionError(f"bad output: shape {gen.shape}")
+        del task, session
+    return launches, secs
+
+
+def drive_concat_path(counters, work):
+    """``sdf_concat`` end to end, full width, bf16 at its batch 16: the
+    training CLI for CONCAT_STEPS steps with one validation, then the
+    inference CLI's "below" inpainting on its run directory (2 segments,
+    scale 1) at DDIM-50 and at the default DDPM-1000 (kernels 1 and 7), then
+    one warm DDIM-50 request at batch 16 through ``InferenceSession``. Each
+    with the launch counts set to 0 just before it and read just after.
+    Returns the launches and seconds by run."""
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.data import BatchLoader, SegmentDataset, SongNpz
+    from polyffusion_tpu_torch.diffusion.schedule import make_schedule
+    from polyffusion_tpu_torch.inference import (
+        InferenceSession,
+        build_task_for_inference,
+        load_unet_params,
+    )
+    from polyffusion_tpu_torch.inference import main as infer_main
+    from polyffusion_tpu_torch.main import main as train_main
+
+    data, run = os.path.join(work, "songs"), os.path.join(work, "run_concat")
+    _, val_ds = SegmentDataset.train_val_from_dir(data, 0.9)
+    val_batches = len(BatchLoader(val_ds, 16))
+    zero = {name: 0 for name in counters}
+    launches, secs = {}, {}
+    state, secs["training"], launches["training"], _ = run_with_counts(
+        counters, train_main, ["--model", "sdf_concat", "--output_dir", run, "--data_dir", data,
+                               "--log_every", "2", "--seed", "0", "--max_steps",
+                               str(CONCAT_STEPS)])
+    _, losses = stage_ms(run)
+    want = dict(zero, packed_attention=ATTENTION_SITES * (CONCAT_STEPS + val_batches),
+                packed_attention_bwd=ATTENTION_SITES * CONCAT_STEPS,
+                gn_bwd=GROUPNORM_SITES * CONCAT_STEPS)
+    log(f"[concat] training: {CONCAT_STEPS} steps and {val_batches} val batches in "
+        f"{secs['training']:.3f} s (with setup), losses {[round(x, 5) for x in losses]}, "
+        f"launches {launches['training']}")
+    if launches["training"] != want or state.step != CONCAT_STEPS:
+        raise AssertionError(f"expected launches {want} and step {CONCAT_STEPS}, got "
+                             f"{launches['training']} at step {state.step}")
+
+    cfg = load_params("sdf_concat")
+    sqrt_ab0 = np.float32(make_schedule(cfg.n_steps, cfg.linear_start,
+                                        cfg.linear_end).sqrt_alpha_bar[0])
+    orig = SongNpz(CLI_SONG, data).get_whole_song_data()[0][:CLI_A_SEGMENTS]
+    for name, extra, want in (
+            ("cli_ddim", ["--ddim"], dict(zero, packed_attention=ATTENTION_SITES * CLI_DDIM_STEPS)),
+            ("cli_ddpm", [], dict(zero, packed_attention=ATTENTION_SITES * CLI_DDPM_STEPS,
+                                  repaint_epilogue=CLI_DDPM_STEPS))):
+        out = os.path.join(work, f"gen_concat_{name}")
+        ((gen, mask),), secs[name], launches[name], _ = run_with_counts(
+            counters, infer_main, ["--chkpt_path", run, "--data_dir", data, "--song_fn", CLI_SONG,
+                                   "--inpaint_type", "below", "--length", str(CLI_A_SEGMENTS),
+                                   "--output_dir", out] + extra)
+        keep = mask == 1
+        known_err = float(np.abs(gen[keep] - sqrt_ab0 * orig[keep]).max())
+        mids = sorted(os.listdir(out))
+        log(f"[concat] inference CLI {name} ({' '.join(['--inpaint_type below'] + extra)} "
+            f"--length {CLI_A_SEGMENTS}): {secs[name]:.3f} s, launches {launches[name]}, wrote {mids}; "
+            f"known region vs sqrt_alpha_bar[0] * orig: max_abs_err {known_err:.3g}")
+        if launches[name] != want:
+            raise AssertionError(f"expected launches {want}, got {launches[name]}")
+        if not (gen.shape == (CLI_A_SEGMENTS, 2, 128, 128) and np.isfinite(gen).all()
+                and len(mids) == 1 and 0 < keep.mean() < 1):
+            raise AssertionError(f"bad sdf_concat inpainting: {mids}, shape {gen.shape}")
+        if name == "cli_ddpm" and known_err > 1e-6:
+            raise AssertionError("the DDPM inpainting did not keep the known region")
+
+    task = build_task_for_inference(load_params(os.path.join(run, "params.yaml")))
+    task.load_unet_state(load_unet_params(run))
+    batch = song_batch(data, STUDENT_BATCH)
+    InferenceSession(task, sampler="ddim", ddim_steps=2, seed=1).generate(task.encode_cond(batch))
+    session = InferenceSession(task, sampler="ddim", ddim_steps=50, seed=0)
+    gen, secs["request"], launches["request"], _ = run_with_counts(
+        counters, lambda: session.generate(task.encode_cond(batch)))
+    log(f"[concat] DDIM-50 request at batch {STUDENT_BATCH}, scale 1: {secs['request']:.3f} s, "
+        f"{STUDENT_BATCH / secs['request']:.3f} samples/s, launches {launches['request']}")
+    if launches["request"] != dict(zero, packed_attention=LAUNCHES_PER_REQUEST):
+        raise AssertionError(f"expected {LAUNCHES_PER_REQUEST} kernel-1 launches, got "
+                             f"{launches['request']}")
+    if gen.shape != (STUDENT_BATCH, 2, 128, 128) or not np.isfinite(gen).all():
+        raise AssertionError(f"bad output: shape {gen.shape}")
+    return launches, secs
+
+
 def main() -> int:
     import torch
 
@@ -2335,6 +2922,9 @@ def main() -> int:
     check_train_step_against_cpu()
     check_train_step_against_cpu(gn_conv="fused")
     check_ddpm_paint_against_cpu()
+    check_concat_against_cpu()
+    check_dpmpp_against_cpu()
+    check_distill_against_cpu()
     sites = count_sites(make_task(full_cfg(bf16=True), "cpu", seed=0).unet)
     if sites != (ATTENTION_SITES, GROUPNORM_SITES):
         raise AssertionError(f"the full-width UNet has {sites} (attention, GroupNorm) sites")
@@ -2380,6 +2970,16 @@ def main() -> int:
             row["cli_host_ms_per_step"] = vae_host_ms[name]
         from_runs = drive_sdf_from_runs(counters, work)
         log(f"[pretrain] summary {json.dumps(vae_profiles)}")
+        # the distillation of the training path's run directory, its students'
+        # requests, then the blurry-image condition end to end
+        distill, distill_ms = drive_distill_cli(counters, work)
+        distill_rows = profile_distill_steps(work)
+        students, student_secs = drive_student_requests(counters, work)
+        concat, concat_secs = drive_concat_path(counters, work)
+        summary = dict(steps=distill_rows, cli_stage_ms=distill_ms, request_secs=student_secs,
+                       request_batch=STUDENT_BATCH)
+        log(f"[distill] summary {json.dumps(summary)}")
+        log(f"[concat] summary {json.dumps(concat_secs)}")
 
     def entry(name, source, replaces, launches, rows, main_row, errs_of):
         extra = {}
@@ -2420,7 +3020,10 @@ def main() -> int:
                "training_mix2": mix2_training["packed_attention"],
                "cli_mix2": mix2_cli["packed_attention"],
                **{f"training_{name}_from_run": n["packed_attention"]
-                  for name, n in from_runs.items()}},
+                  for name, n in from_runs.items()},
+               **{f"distill_{name}": n["packed_attention"] for name, n in distill.items()},
+               **{f"sampling_{name}": n["packed_attention"] for name, n in students.items()},
+               **{f"concat_{name}": n["packed_attention"] for name, n in concat.items()}},
               rows, rows[0], fwd_bf16),
         # B=16 T=1024 bf16: the train step's dominant shape
         entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
@@ -2428,7 +3031,11 @@ def main() -> int:
               {"training": training["packed_attention_bwd"],
                "training_mix2": mix2_training["packed_attention_bwd"],
                **{f"training_{name}_from_run": n["packed_attention_bwd"]
-                  for name, n in from_runs.items()}}, bwd_rows, bf16[0], bf16),
+                  for name, n in from_runs.items()},
+               "distill_cli": distill["cli"]["packed_attention_bwd"],
+               "distill_cli_chain": distill["cli_chain"]["packed_attention_bwd"],
+               "concat_training": concat["training"]["packed_attention_bwd"]},
+              bwd_rows, bf16[0], bf16),
         # BH=512 T=1024 D=64 bf16: a batch-128 level-2 self-attention in head-major
         # form; on no model path, driven directly
         entry("head_major_attention", "polyffusion_tpu_torch/ops/csrc/packed_attention.cu",
@@ -2438,12 +3045,16 @@ def main() -> int:
         entry("gn_bwd", "polyffusion_tpu_torch/ops/csrc/gn_bwd.cu",
               "polyffusion_tpu/ops/gn_bwd.py:66",
               {"training": training["gn_bwd"], "training_mix2": mix2_training["gn_bwd"],
-               **{f"training_{name}_from_run": n["gn_bwd"] for name, n in from_runs.items()}},
+               **{f"training_{name}_from_run": n["gn_bwd"] for name, n in from_runs.items()},
+               "distill_cli": distill["cli"]["gn_bwd"],
+               "distill_cli_chain": distill["cli_chain"]["gn_bwd"],
+               "concat_training": concat["training"]["gn_bwd"]},
               gn_rows, gn_rows[0], gn_rows),
         # B=2 2x128x128 fp32: request A's sampler batch
         entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",
               "polyffusion_tpu/ops/pallas_sampler.py:33",
-              {"inpainting": cli["inpainting"]["repaint_epilogue"]}, epi_rows, epi_rows[0],
+              {"inpainting": cli["inpainting"]["repaint_epilogue"],
+               "concat_cli_ddpm": concat["cli_ddpm"]["repaint_epilogue"]}, epi_rows, epi_rows[0],
               epi_rows),
         # B=128 C=64->64 128x128 bf16 with the residual: the costliest site shape
         entry("gn_silu_conv", "polyffusion_tpu_torch/ops/csrc/gn_silu_conv.cu",

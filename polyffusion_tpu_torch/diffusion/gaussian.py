@@ -11,7 +11,7 @@ tables may be NumPy arrays or tensors already on the image's device.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -60,7 +60,12 @@ def diffusion_loss(
     cond: torch.Tensor,
     t: torch.Tensor,
     noise: torch.Tensor,
+    cond_concat: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Simplified eps-MSE loss (latent_diffusion.py:203-240)."""
-    eps_theta = apply_fn(q_sample(schedule, x0, t, noise), t, cond)
+    """Simplified eps-MSE loss (latent_diffusion.py:203-240). ``cond_concat``
+    (extra input channels, NCHW) is concatenated to x_t before the net."""
+    xt = q_sample(schedule, x0, t, noise)
+    if cond_concat is not None:
+        xt = torch.cat([xt, cond_concat.to(xt.dtype)], dim=1)
+    eps_theta = apply_fn(xt, t, cond)
     return torch.mean((noise - eps_theta.to(noise.dtype)) ** 2)

@@ -24,16 +24,26 @@ EpsFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]  # (x
 
 
 def make_eps_fn(apply_fn: EpsFn, uncond_scale: float = 1.0, uncond_cond: Optional[torch.Tensor] = None):
-    """Classifier-free-guidance epsilon. s == 1 (or no uncond condition) runs
-    one conditional pass, s == 0 one unconditional pass; any other scale runs
-    ONE double batch [uncond, cond] and returns e_u + s * (e_c - e_u)."""
+    """Classifier-free-guidance epsilon ``eps(x, t, cond, cond_concat=None)``
+    on NCHW ``x``. s == 1 (or no uncond condition) runs one conditional pass,
+    s == 0 one unconditional pass; any other scale runs ONE double batch
+    [uncond, cond] and returns e_u + s * (e_c - e_u). ``cond_concat`` (extra
+    input channels, NCHW) is concatenated to the net's input on the channel
+    axis, repeated over the double batch."""
 
-    def eps(x, t, cond):
+    def run(x, t, cond, cond_concat):
+        if cond_concat is not None:
+            rep = x.shape[0] // cond_concat.shape[0]
+            cat = torch.cat([cond_concat] * rep) if rep > 1 else cond_concat
+            x = torch.cat([x, cat.to(x.dtype)], dim=1)
+        return apply_fn(x, t, cond)
+
+    def eps(x, t, cond, cond_concat=None):
         if uncond_cond is None or uncond_scale == 1.0:
-            return apply_fn(x, t, cond)
+            return run(x, t, cond, cond_concat)
         if uncond_scale == 0.0:
-            return apply_fn(x, t, uncond_cond)
-        e = apply_fn(torch.cat([x, x]), torch.cat([t, t]), torch.cat([uncond_cond, cond]))
+            return run(x, t, uncond_cond, cond_concat)
+        e = run(torch.cat([x, x]), torch.cat([t, t]), torch.cat([uncond_cond, cond]), cond_concat)
         e_uncond, e_cond = e.chunk(2)
         return e_uncond + uncond_scale * (e_cond - e_uncond)
 
@@ -49,9 +59,9 @@ def _timesteps(x: torch.Tensor, step: int) -> torch.Tensor:
     return torch.full((x.shape[0],), int(step), dtype=torch.int32, device=x.device)
 
 
-def _ddim_step(dd: DDIMSchedule, eps_fn, x, cond, step: int, index: int, noise):
+def _ddim_step(dd: DDIMSchedule, eps_fn, x, cond, step: int, index: int, noise, cond_concat=None):
     """One DDIM update on NCHW ``x``; ``noise`` is only read when sigma > 0."""
-    e_t = eps_fn(x, _timesteps(x, step), cond).to(x.dtype)
+    e_t = eps_fn(x, _timesteps(x, step), cond, cond_concat).to(x.dtype)
     one = np.float32(1.0)
     alpha, alpha_prev, sigma = dd.alpha[index], dd.alpha_prev[index], dd.sigma[index]
     pred_x0 = (x - _f(dd.sqrt_one_minus_alpha[index]) * e_t) / _f(np.sqrt(alpha))
@@ -74,16 +84,20 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def _nchw_or_none(x):
+    return None if x is None else _nchw(x)
+
+
 def _step_noise(noise_override, k: int, shape, generator, device):
     if noise_override is not None:
         return lambda: _nchw(noise_override[k])
     return lambda: torch.randn(shape, generator=generator, device=device)
 
 
-def _ddpm_step(sch: NoiseSchedule, eps_fn, x, cond, step: int, noise):
+def _ddpm_step(sch: NoiseSchedule, eps_fn, x, cond, step: int, noise, cond_concat=None):
     """One ancestral step x_t -> x_{t-1} on NCHW ``x`` (SDFSampler.p_sample);
     ``noise`` is only read when step > 0."""
-    e_t = eps_fn(x, _timesteps(x, step), cond).to(x.dtype)
+    e_t = eps_fn(x, _timesteps(x, step), cond, cond_concat).to(x.dtype)
     x0 = _f(sch.sqrt_recip_alpha_bar[step]) * x - _f(sch.sqrt_recip_m1_alpha_bar[step]) * e_t
     mean = _f(sch.mean_x0_coef[step]) * x0 + _f(sch.mean_xt_coef[step]) * x
     if step == 0:
@@ -138,11 +152,12 @@ def ddpm_paint(
     mask: Optional[torch.Tensor] = None,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cond_concat: Optional[torch.Tensor] = None,
     repaint_n: int = 1,
     noise_override: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """RePaint inpainting from step ``t_start`` down to 0 (SDFSampler.paint),
-    NHWC in and out.
+    NHWC in and out; ``cond_concat`` (NHWC) is the net's extra input channels.
 
     Per step, ``repaint_n`` times: the ancestral update of the unknown region
     and ``q_sample(orig, step)`` of the known one (mask == 1), blended by the
@@ -152,12 +167,13 @@ def ddpm_paint(
     ``noise_override``: (S, B, H, W, C) noises when ``orig is None``, else
     (S, repaint_n, 3, B, H, W, C) noises [q, p, renoise]."""
     eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    cc = _nchw_or_none(cond_concat)
     steps = range(t_start, -1, -1)
     if orig is None:
         xc = _nchw(x)
         for k, step in enumerate(steps):
             noise = _step_noise(noise_override, k, xc.shape, generator, xc.device)
-            xc = _ddpm_step(schedule, eps_fn, xc, cond, step, noise)
+            xc = _ddpm_step(schedule, eps_fn, xc, cond, step, noise, cc)
         return _nhwc(xc).contiguous()
 
     if mask is None:
@@ -173,7 +189,7 @@ def ddpm_paint(
         scalars = _epilogue_scalars(schedule, step)
         ts = _timesteps(xc, step)
         for u in range(repaint_n):
-            e_t = eps_fn(xc, ts, cond).to(xc.dtype).contiguous()
+            e_t = eps_fn(xc, ts, cond, cc).to(xc.dtype).contiguous()
             x_out = fused_repaint_epilogue(xc, e_t, nz[u, 1], orig, nz[u, 0], mask, scalars)
             if u < repaint_n - 1 and step > 0:
                 beta = schedule.beta[step - 1]
@@ -223,13 +239,16 @@ def ddim_paint(
     orig_noise: Optional[torch.Tensor] = None,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cond_concat: Optional[torch.Tensor] = None,
     noise_override: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mask-blend DDIM inpainting from tau_{t_start} down to tau_1, NHWC in and
     out: after each update the known region (mask == 1) is replaced with
     ``q_sample(orig, index)`` under the fixed ``orig_noise``. With ``orig is
-    None`` this is plain conditional generation."""
+    None`` this is plain conditional generation. ``cond_concat`` (NHWC): the
+    net's extra input channels."""
     eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    cc = _nchw_or_none(cond_concat)
     xc = _nchw(x)
     masked = orig is not None
     if masked:
@@ -242,7 +261,7 @@ def ddim_paint(
     n = len(steps)
     for k, (step, index) in enumerate(zip(steps, range(n - 1, -1, -1))):
         noise = _step_noise(noise_override, k, xc.shape, generator, xc.device)
-        xc = _ddim_step(dd, eps_fn, xc, cond, step, index, noise)
+        xc = _ddim_step(dd, eps_fn, xc, cond, step, index, noise, cc)
         if masked:
             orig_t = ddim_q_sample(dd, orig, index, orig_noise)
             xc = orig_t * mask + xc * (1.0 - mask)
@@ -275,6 +294,7 @@ def dpmpp_paint(
     orig_noise: Optional[torch.Tensor] = None,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cond_concat: Optional[torch.Tensor] = None,
     order: int = 2,
 ) -> torch.Tensor:
     """DPM-Solver++ multistep ODE sampling (Lu et al., arXiv:2211.01095,
@@ -287,10 +307,11 @@ def dpmpp_paint(
     ``orig_noise`` when a mask is given without one. Masked inpainting blends
     in ``q_sample(orig, index)`` under the fixed ``orig_noise`` after each
     transition, as ``ddim_paint`` does; the x0 history follows the blended
-    trajectory."""
+    trajectory. ``cond_concat`` (NHWC): the net's extra input channels."""
     if order not in (1, 2):
         raise ValueError(f"dpmpp order must be 1 or 2, got {order}")
     eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    cc = _nchw_or_none(cond_concat)
     a_t, s_t, a_p, s_p, h_t = _dpmpp_tables(dd)
     xc = _nchw(x)
     masked = orig is not None
@@ -304,7 +325,7 @@ def dpmpp_paint(
     n = len(steps)
     x0_prev, h_prev = None, None
     for k, (step, index) in enumerate(zip(steps, range(n - 1, -1, -1))):
-        e_t = eps_fn(xc, _timesteps(xc, step), cond).to(xc.dtype)
+        e_t = eps_fn(xc, _timesteps(xc, step), cond, cc).to(xc.dtype)
         x0 = (xc - _f(s_t[index]) * e_t) / _f(a_t[index])
         h = h_t[index]
         if order == 2 and k > 0:

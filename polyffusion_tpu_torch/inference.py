@@ -11,8 +11,11 @@ package's layouts and argument order: conditions (B, N, d_cond) (N = 1, or the
 128 prmat rows of ``sdf_txtvnl``), images (B, 2, H, W) in and out, optional
 starting ``noise`` NHWC (B, H, W, C); with ``autoreg`` and a pieces axis,
 conditions (P, B, N, d_cond) and output (P, 2B, C, H/2, W). The CFG
-unconditional condition is -1s of the condition's own shape. Runs on the GPU
-unless ``--device cpu`` is given.
+unconditional condition is -1s of the condition's own shape. A
+``concat_blurry`` task (``sdf_concat``) also sees the blurry image of each
+request's original roll; a distilled student's run directory
+(``polyffusion_tpu_torch.distill``) is sampled on its own tau grid. Runs on the
+GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from .diffusion.gaussian import q_sample_step
 from .diffusion.schedule import make_ddim_schedule
 from .models.encoders import build_frozen_encoders
 from .models.unet import GN_CONV_MODES
-from .tasks.sdf import SDFTask
+from .tasks.sdf import SDFTask, blurry_image
 from .utils.midi_io import prmat2c_to_midi_file
 
 SAMPLERS = ("ddpm", "ddim", "dpmpp")
@@ -132,7 +135,7 @@ class InferenceSession:
         task: SDFTask,
         *,
         use_ddim: bool = False,
-        ddim_steps: int = 50,
+        ddim_steps: Optional[int] = None,
         ddim_eta: float = 0.0,
         ddim_discretize: str = "uniform",
         sampler: Optional[str] = None,
@@ -144,7 +147,9 @@ class InferenceSession:
         """``sampler``: "ddpm" (ancestral, over all of the schedule's steps,
         with RePaint inpainting), "ddim" or "dpmpp" (DPM-Solver++ on the DDIM
         tau grid); by default "ddim" if ``use_ddim`` else "ddpm", as in the
-        JAX package."""
+        JAX package. ``ddim_steps``: the tau grid's size; None means the
+        distilled checkpoint's own grid (``distill_grid``), on which the
+        tau-grid samplers then run exactly, or else 50."""
         self.device = resolve_device(device)
         if self.device != task.device:
             raise ValueError(f"task lies on {task.device}, session asked for {self.device}")
@@ -159,15 +164,43 @@ class InferenceSession:
         self.dpm_order = dpm_order
         self.use_ddim = sampler in ("ddim", "dpmpp")  # tau-grid samplers
         self.repaint_n = repaint_n
+        # a distilled student (distill.py) carries its tau grid and the CFG
+        # scale it bakes in; a stage-B student must be sampled on that grid
+        # (a stage-A-only student has none and samples on any)
+        grid = task.cfg.get("distill_grid")
+        self.distilled_scale = (
+            task.cfg.get("distilled_scale") if task.cfg.get("v_prediction") else None
+        )
+        self._scale_warned = False
+        if grid is not None and not self.use_ddim:
+            print(
+                "[inference] WARNING: distilled (stage-B) checkpoint sampled with "
+                f"the {self.schedule.n_steps}-step ancestral DDPM sampler — the "
+                f"student was trained only on its {len(grid)}-step grid; use the "
+                "ddim/dpmpp sampler"
+            )
+        if ddim_steps is None:
+            ddim_steps = 50 if grid is None else len(grid)
+            if grid is not None and self.use_ddim:
+                print(f"[inference] distilled checkpoint: using its {ddim_steps}-step grid")
+        on_grid = self.use_ddim and grid is not None and ddim_steps == len(grid)
         self.ddim = (
-            make_ddim_schedule(self.schedule, ddim_steps, ddim_discretize, ddim_eta)
+            make_ddim_schedule(self.schedule, ddim_steps, ddim_discretize, ddim_eta,
+                               time_steps=np.asarray(grid) if on_grid else None)
             if self.use_ddim
             else None
         )
+        if self.use_ddim and grid is not None and not on_grid:
+            print(
+                f"[inference] note: distilled grid has {len(grid)} steps; sampling "
+                f"on a uniform {ddim_steps}-step grid instead (valid for stage-A "
+                f"students, off-distribution for stage-B ones)"
+            )
         self.ddim_label = (
             f"dpmpp{dpm_order}m_{ddim_steps}_{ddim_discretize}"
             if sampler == "dpmpp"
-            else f"ddim{ddim_steps}_eta{ddim_eta}_{ddim_discretize}"
+            else f"ddim{ddim_steps}_eta{ddim_eta}_"
+            + ("distilled" if on_grid else ddim_discretize)
         )
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -183,11 +216,20 @@ class InferenceSession:
             return S.ddim_q_sample(self.ddim, orig_nhwc, self.t_idx, noise)
         return q_sample_step(self.schedule, orig_nhwc, self.t_idx, noise)
 
+    def _cond_concat_of(self, orig_nhwc):
+        """A ``concat_blurry`` task's extra input channels: the blurry image of
+        ``orig`` (all zero for plain generation, whose blurry image is 0), NHWC."""
+        if not self.task.concat_blurry:
+            return None
+        blurry = blurry_image(orig_nhwc.permute(0, 3, 1, 2), self.task.concat_ratio)
+        return blurry.permute(0, 2, 3, 1)
+
     def _paint(self, x, cond, orig, mask, orig_noise, uncond_cond, uncond_scale: float):
         """The sampler from ``t_idx`` down, NHWC in and out. DDPM re-noises the
         known region with fresh noise at every step (it reads no
         ``orig_noise``); the tau-grid samplers with ``orig_noise``."""
-        common = dict(orig=orig, mask=mask, uncond_scale=uncond_scale, uncond_cond=uncond_cond)
+        common = dict(orig=orig, mask=mask, uncond_scale=uncond_scale, uncond_cond=uncond_cond,
+                      cond_concat=self._cond_concat_of(orig))
         if self.sampler_kind == "dpmpp":
             return S.dpmpp_paint(self.task.apply_eps, self.ddim, x, cond, self.t_idx,
                                  self.generator, orig_noise=orig_noise, order=self.dpm_order,
@@ -217,6 +259,13 @@ class InferenceSession:
         each forcing its first 4 bars to the previous window's last 4
         (``cond_mid`` holds the B-1 mid-window conditions); a leading pieces
         axis on ``cond`` runs P pieces at batch P (``_predict_autoreg``)."""
+        if self.distilled_scale is not None and uncond_scale != 1.0 and not self._scale_warned:
+            self._scale_warned = True
+            print(
+                f"[inference] note: this student bakes in CFG scale "
+                f"{self.distilled_scale}; sample it at --uncond_scale 1 "
+                f"(got {uncond_scale}: that guidance applies ON TOP)"
+            )
         if autoreg:
             if cond_mid is None:
                 raise ValueError("autoreg needs the mid-window conditions")
@@ -409,7 +458,8 @@ def main(argv=None):
     p.add_argument("--num_generate", type=int, default=1)
     p.add_argument("--autoreg", action="store_true")
     p.add_argument("--ddim", action="store_true")
-    p.add_argument("--ddim_steps", type=int, default=50, help="tau grid size")
+    p.add_argument("--ddim_steps", type=int, default=None,
+                   help="tau grid size (default: 50, or a distilled checkpoint's own grid)")
     p.add_argument("--ddim_eta", type=float, default=0.0)
     p.add_argument("--ddim_discretize", default="uniform", choices=["uniform", "quad"])
     p.add_argument("--dpmpp", action="store_true",

@@ -1,18 +1,23 @@
 """The Polyffusion-SDF task (counterpart of ``polyffusion_tpu/tasks/sdf.py``):
 the condition per ``cond_type`` (chord, txt, pnotree, chord+txt), each the mean
 of a frozen VAE encoder or the raw feature, with classifier-free-guidance
-dropout to -1s per ``cond_mode`` (cond, uncond, mix, mix2), and the eps-MSE
-diffusion loss. ``concat_blurry`` (``sdf_concat``) is not ported yet."""
+dropout to -1s per ``cond_mode`` (cond, uncond, mix, mix2), optionally a
+blurry low-resolution copy of the roll as extra input channels
+(``concat_blurry``, ``sdf_concat``), and the eps-MSE diffusion loss. A
+``v_prediction`` config (a distilled student, ``polyffusion_tpu_torch.distill``)
+samples through the v->eps adapter and is not trained by this loss."""
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..data.loader import decompress_batch
 from ..device import DeviceLike, resolve_device
 from ..diffusion.gaussian import diffusion_loss, draw_t_noise
+from ..diffusion.progressive import make_v_to_eps_apply
 from ..diffusion.schedule import NoiseSchedule, make_schedule
 from ..models.encoders import ChordEncoder, PianoTreeEncoder, TextureEncoder
 from ..models.unet import UNetModel, init_weights_
@@ -32,6 +37,16 @@ def refuse_unported_trainer_keys(cfg) -> None:
     if keys:
         raise NotImplementedError(
             f"{', '.join(keys)}: not ported yet (ROADMAP.md item 19)")
+
+
+def blurry_image(x: torch.Tensor, ratio: float = 0.25) -> torch.Tensor:
+    """NCHW ``x``: bicubic antialiased downsample by ``ratio``, nearest upsample
+    back, clipped to [0, 1] (JAX ``blurry_image``, reference ``utils.py:552-567``;
+    ``jax.image.resize`` antialiases a bicubic downsample)."""
+    h, w = x.shape[-2:]
+    small = F.interpolate(x, size=(int(h * ratio), int(w * ratio)), mode="bicubic",
+                          align_corners=False, antialias=True)
+    return F.interpolate(small, size=(h, w), mode="nearest").clamp(0.0, 1.0)
 
 
 class StepNoise(NamedTuple):
@@ -84,16 +99,12 @@ class SDFTask:
         self.cond_type = cfg.get("cond_type", "chord")
         if self.cond_type not in COND_TYPES:
             raise NotImplementedError(f"cond_type {self.cond_type!r}")
-        if cfg.get("concat_blurry", False):
-            raise NotImplementedError(
-                "concat_blurry (sdf_concat) is not ported yet (ROADMAP.md item 8)")
         refuse_unported_trainer_keys(cfg)
-        distilled = [key for key in ("v_prediction", "distill_grid", "distilled_scale")
-                     if cfg.get(key) not in (None, False)]
-        if distilled:
-            raise NotImplementedError(
-                f"{', '.join(distilled)}: distilled (v-prediction) models are not ported "
-                "yet (ROADMAP.md item 9)")
+        self.concat_blurry = bool(cfg.get("concat_blurry", False))
+        self.concat_ratio = float(cfg.get("concat_ratio", 0.25))
+        # a distilled student predicts v; only the session reads distill_grid
+        # and distilled_scale
+        self.v_prediction = bool(cfg.get("v_prediction", False))
         self.cond_mode = cfg.get("cond_mode", "cond")
         self.bf16 = bool(cfg.get("bf16", False))
         self.use_enc = bool(cfg.get("use_enc", self.cond_type == "pnotree"))
@@ -110,7 +121,27 @@ class SDFTask:
         if training and gn_conv == "int8":
             raise ValueError("gn_conv='int8' is sampling-only (no gradient): train with "
                              "'unfused' or 'fused'")
-        self.unet = UNetModel(
+        self.gn_conv = gn_conv
+        self.unet = self.make_unet()
+        self.chord_enc, self.txt_enc, self.pnotree_enc = chord_enc, txt_enc, pnotree_enc
+        if generator is not None:
+            init_weights_(self.unet, generator)
+        self.schedule = make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end)
+        # the tables the loss indexes, on the device once
+        self._schedule_dev = NoiseSchedule(
+            *(torch.from_numpy(a).to(self.device) for a in self.schedule)
+        )
+        if self.v_prediction:
+            # the instance's eps shadows the method, so every sampler keeps its
+            # eps contract; apply_raw stays the net's own output
+            self.apply_eps = make_v_to_eps_apply(self.apply_raw, self._schedule_dev)
+        self._place()
+
+    def make_unet(self) -> UNetModel:
+        """A new UNet of this task's config and GroupNorm-SiLU-conv route, in
+        fp32 with torch's default init, on the CPU."""
+        cfg = self.cfg
+        return UNetModel(
             in_channels=cfg.in_channels,
             out_channels=cfg.out_channels,
             channels=cfg.channels,
@@ -120,17 +151,8 @@ class SDFTask:
             n_heads=cfg.n_heads,
             tf_layers=cfg.tf_layers,
             d_cond=cfg.d_cond,
-            gn_conv=gn_conv,
+            gn_conv=self.gn_conv,
         )
-        self.chord_enc, self.txt_enc, self.pnotree_enc = chord_enc, txt_enc, pnotree_enc
-        if generator is not None:
-            init_weights_(self.unet, generator)
-        self.schedule = make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end)
-        # the tables the loss indexes, on the device once
-        self._schedule_dev = NoiseSchedule(
-            *(torch.from_numpy(a).to(self.device) for a in self.schedule)
-        )
-        self._place()
 
     def _place(self) -> None:
         if self.bf16 and not self.training:
@@ -251,16 +273,28 @@ class SDFTask:
 
     def loss_fn(self, batch, noise: StepNoise) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """eps-MSE loss of a (possibly compressed) batch for the given t, noise
-        and coin; the UNet runs in the dtype of its weights."""
+        and coin; the UNet runs in the dtype of its weights. With
+        ``concat_blurry`` the net also sees ``blurry_image(x0)``."""
+        if self.v_prediction:
+            raise ValueError("v-prediction checkpoints come from the distill CLI; direct "
+                             "eps-objective training of a v model is unsupported")
         batch = decompress_batch(batch)
         cond = self.encode_cond(batch, drop=noise.drop, drop_chd=noise.drop_chd,
                                 drop_txt=noise.drop_txt)
         x0 = batch[0].to(self.device, torch.float32)
-        loss = diffusion_loss(self.apply_eps, self._schedule_dev, x0, cond, noise.t, noise.noise)
+        cond_concat = blurry_image(x0, self.concat_ratio) if self.concat_blurry else None
+        loss = diffusion_loss(self.apply_eps, self._schedule_dev, x0, cond, noise.t, noise.noise,
+                              cond_concat)
         return loss, {"loss": loss}
 
     # -- the net ----------------------------------------------------------------
 
     def apply_eps(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        """eps prediction on NCHW ``x`` (fp32 out)."""
+        """eps prediction on NCHW ``x`` (fp32 out); a ``v_prediction`` task
+        replaces it on the instance with the v->eps adapter."""
+        return self.unet(x, t, cond)
+
+    def apply_raw(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        """The net's own output (eps, or v for a distilled student), never
+        adapted."""
         return self.unet(x, t, cond)

@@ -133,8 +133,15 @@ class Trainer:
 
     # -- the loop ---------------------------------------------------------------
 
-    def fit(self, train_dl, val_dl, seed: int = 0, resume: bool = True) -> TrainState:
+    def fit(self, train_dl, val_dl, seed: int = 0, resume: bool = True,
+            init_params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+        """``init_params``: fp32 weights by parameter name, loaded strictly into
+        ``task.model`` before the state is made (a distillation student starts
+        from its teacher); a restored checkpoint still wins."""
         cfg = self.cfg
+        if init_params is not None:
+            with torch.no_grad():
+                self.task.model.float().load_state_dict(init_params, strict=True)
         state = create_state(
             self.task.model,
             cfg.learning_rate,

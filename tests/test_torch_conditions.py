@@ -52,6 +52,7 @@ from polyffusion_tpu_torch.tasks.sdf import StepNoise
 from polyffusion_tpu_torch.train import create_state, make_train_step
 
 PRESETS = ["sdf_txt", "sdf_txtvnl", "sdf_chd8bar_txt", "sdf_chd8bar_txt_mix2", "sdf_pnotree"]
+RAW_CHORD = ["sdf", "sdf_chdvnl", "sdf_concat"]  # the raw chord one-hots, use_enc: false
 ENC_ATOL = 3e-5  # the texture and PianoTree bounds of tests/test_encoder_parity.py:109, :136
 ATOL, RTOL = 2e-3, 1e-3  # the DDIM tolerance of tests/test_torch_slice.py
 CHD_Z, TXT_Z, PNO_Z = 16, 8, 8  # tiny encoder widths: z of one 2-bar segment
@@ -61,7 +62,8 @@ TINY = dict(batch_size=2, max_epoch=1, learning_rate=1e-3, max_grad_norm=1.0, bf
             chd_hidden_dim=16, chd_z_dim=CHD_Z, txt_emb_size=16, txt_hidden_dim=16,
             txt_z_dim=TXT_Z)
 D_COND = {"sdf_txt": 4 * TXT_Z, "sdf_txtvnl": 128, "sdf_chd8bar_txt": CHD_Z + 4 * TXT_Z,
-          "sdf_chd8bar_txt_mix2": CHD_Z + 4 * TXT_Z, "sdf_pnotree": 4 * PNO_Z}
+          "sdf_chd8bar_txt_mix2": CHD_Z + 4 * TXT_Z, "sdf_pnotree": 4 * PNO_Z,
+          **{name: 32 * 36 for name in RAW_CHORD}}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -322,7 +324,7 @@ def _batch(song):
 
 
 @pytest.mark.parametrize("mode", ["cond", "uncond", "mix", "mix2"])
-@pytest.mark.parametrize("name", PRESETS)
+@pytest.mark.parametrize("name", PRESETS + RAW_CHORD)
 def test_encode_cond_matches_jax(encoders, song, name, mode):
     jtask, task = _tasks(name, encoders, mode)
     want = np.asarray(jtask.encode_cond(tuple(map(jnp.asarray, song)), rng=None))
@@ -399,8 +401,8 @@ def test_feeder_ships_the_fields_the_task_reads(encoders, data_dir):
 
 
 def test_refuses_what_is_not_ported(encoders):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SDFTask(Params(_cfg("sdf_txt", concat_blurry=True)), **encoders["port"], device="cpu")
+    concat = SDFTask(Params(_cfg("sdf_concat")), device="cpu")
+    assert concat.concat_blurry and concat.unet.input_blocks[0][0].weight.shape[1] == 4
     with pytest.raises(ValueError, match="txt_enc"):
         SDFTask(Params(_cfg("sdf_txt")), device="cpu")
     with pytest.raises(ValueError, match="pnotree_enc"):
@@ -469,7 +471,7 @@ def sessions(encoders, song):
     """For each sampled preset: the JAX task and params, the port's session
     on the same weights, both conditions and a starting noise."""
     out = {}
-    for name in ("sdf_txt", "sdf_txtvnl", "sdf_pnotree"):
+    for name in ("sdf_txt", "sdf_txtvnl", "sdf_pnotree", "sdf", "sdf_chdvnl"):
         jtask, task = _tasks(name, encoders)
         params = _np_tree(jtask.init_params(jax.random.PRNGKey(1)))
         task.load_unet_state(unet_state_from_jax(params))
@@ -481,7 +483,7 @@ def sessions(encoders, song):
     return out
 
 
-@pytest.mark.parametrize("name", ["sdf_txt", "sdf_pnotree"])
+@pytest.mark.parametrize("name", ["sdf_txt", "sdf_pnotree", "sdf", "sdf_chdvnl"])
 def test_session_matches_jax(sessions, name):
     jtask, params, sess, jcond, cond, noise = sessions[name]
     jsess = JaxSession(jtask, params, use_ddim=True, ddim_steps=4, seed=0)
@@ -541,7 +543,7 @@ def test_autoreg_session_takes_token_conditions(sessions, song):
 # -- the presets and the CLIs -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["sdf", "sdf_chdvnl"] + PRESETS)
+@pytest.mark.parametrize("name", RAW_CHORD + PRESETS)
 def test_presets_equal_the_jax_package(name):
     from polyffusion_tpu.config import PARAMS_DIR as JAX_PARAMS_DIR
 

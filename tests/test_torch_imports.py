@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 34
+    assert int(n_modules) >= 37
     assert bad.strip() == "[]", bad
 
 

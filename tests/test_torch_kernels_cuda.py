@@ -696,3 +696,52 @@ def test_cuda_vae_loss_and_gradients_match_the_cpu(name):
         assert abs(got_m[k] - w) <= 1e-5 * abs(w), (k, got_m[k], w)
     for k, w in want_g.items():
         assert (got_g[k] - w).norm() <= 1e-4 * w.norm() + 1e-9, k
+
+
+# -- distillation: kernels 1, 2 and 6 under the teacher's and the student's passes ---------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,kind", [("guided", "eps_guided"), ("halve", "v")])
+def test_cuda_distill_loss_and_gradients_match_the_cpu(mode, kind):
+    """One fp32 distillation loss and the student's gradients, card against
+    CPU: a small ``sdf_chdvnl`` (64 channels, one level attending over 1024
+    tokens, one head of 64), the same student and teacher weights, batch and
+    draws, within the limits of ``chip_smoke.py``'s step check (loss rel
+    1e-5, gradients rel 1e-4 in norm per tensor); the card's passes launch
+    kernels 1, 2 and 6."""
+    from polyffusion_tpu_torch.diffusion.progressive import halving_grids, phase_tables
+    from polyffusion_tpu_torch.main import build_task
+    from polyffusion_tpu_torch.tasks.distill import DistillTask
+
+    _card()
+    cfg = load_params("sdf_chdvnl")
+    cfg.update(bf16=False, channels=64, attention_levels=[0], channel_multipliers=[1],
+               n_res_blocks=1, n_heads=1)
+    g = torch.Generator().manual_seed(1)
+    x0 = (torch.rand(2, 2, 32, 32, generator=g) > 0.9).float()
+    chord = torch.zeros(2, 32, 36)
+    chord[:, torch.arange(32), torch.randint(0, 36, (32,), generator=g)] = 1
+    empty = torch.zeros(2, 1)
+    teacher = build_task(cfg, device="cpu", seed=3).unet.state_dict()
+    out, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        base = build_task(cfg, device=device, seed=2)
+        tables = phase_tables(base.schedule, halving_grids(1000, 8, 2)[0])
+        task = DistillTask(base, teacher, 5.0, mode, kind,
+                           tables=tables if mode == "halve" else None)
+        noise = task.draw_noise((x0,), torch.Generator().manual_seed(4))
+        before = (packed_self_attention.launches, packed_attention_bwd.launches,
+                  group_norm_bwd.launches)
+        loss, _ = task.loss_fn(tuple(t.to(device) for t in (x0, empty, chord, empty)),
+                               type(noise)(*(t.to(device) for t in noise)))
+        loss.backward()
+        launches[device] = [n - b for n, b in zip((packed_self_attention.launches,
+                                                   packed_attention_bwd.launches,
+                                                   group_norm_bwd.launches), before)]
+        out[device] = (loss.item(), {k: p.grad.cpu() for k, p in task.model.named_parameters()})
+    (got, got_g), (want, want_g) = out["cuda"], out["cpu"]
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+    for k, w in want_g.items():
+        assert (got_g[k] - w).norm() <= 1e-4 * w.norm() + 1e-9, k
+    assert min(launches["cuda"]) > 0 and launches["cpu"] == [0, 0, 0], launches
