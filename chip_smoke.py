@@ -74,7 +74,22 @@ after:
 - the blurry-image condition, ``sdf_concat`` in bf16 at its batch 16: 4 steps
   through ``polyffusion_tpu_torch.main``, the inference CLI's "below"
   inpainting on its run directory at DDIM-50 and at DDPM-1000 (kernels 1 and
-  7), and a DDIM-50 request at batch 16.
+  7), and a DDIM-50 request at batch 16;
+- MIDI in and PolyDis out (``[midi]``, after the mix2 paths): four seeded
+  64-bar MIDI songs (one with a tempo change) through ``song_from_midi``
+  (host seconds; the share of beats whose recognized root is the written
+  one) and ``prepare_data`` (its songs exact against ``song_from_midi``'s),
+  then the inference CLI's MIDI requests at DDIM-50 over 2 segments, 550
+  kernel-1 launches each: (D) ``--from_midi`` with no ``--data_dir``, (D')
+  the same song prepared (the same condition, and card vs CPU), (E)
+  ``--inpaint_from_midi`` (its kept region against the DDIM q_sample of the
+  second song), (F) ``--from_midi2`` on the chord+txt run directory (chord
+  part from the first song, texture from the second, vs the CPU), (G)
+  ``--polydis_recon`` with a seeded PolyDis checkpoint in the reference
+  layout; the warm PolyDis aftertouch timed alone; and PolyDis fp32 at its
+  widths card vs CPU (encoder, a teacher-forced loss and its gradients, its
+  logits, the greedy grid by its share of equal cells; planted fault: the
+  z_chd | z_rhy halves swapped).
 
 Before the main paths it also holds, card against CPU in fp32 at full width
 with a planted fault each: ``sdf_concat``'s ``blurry_image``, UNet eval and a
@@ -265,6 +280,27 @@ STUDENT_BATCH = 16
 # DDPM-1000 (kernels 1 and 7), 2 segments at scale 1, and one DDIM-50 request
 # at batch 16
 CONCAT_STEPS = 4
+# The MIDI input path and PolyDis ([midi]): MIDI_SONGS seeded songs of MIDI_BARS
+# bars of 4/4 at 120 bpm (2 min 8 s, 8 segments each) written with the port's
+# writer, three tracks each (a melody, block triads of a progression drawn with
+# random_chords, drums on channel 10); song MIDI_TEMPO_SONG changes to 100 bpm
+# at its middle bar (a conductor track of raw SMF bytes). The chord recognizer
+# must name the written root on at least MIDI_ROOT_SHARE_MIN of the beats at
+# 120 bpm (the CPU run of these songs: 1.0 on each). Request E's kept region against
+# the DDIM q_sample of its source at the grid's last index: the same fp32
+# expression on the same device, MIDI_KEEP_ATOL.
+MIDI_SONGS, MIDI_BARS, MIDI_TEMPO_SONG = 4, 64, 1
+MIDI_ROOT_SHARE_MIN = 0.95
+MIDI_KEEP_ATOL = 1e-6
+# PolyDis card vs CPU, fp32 at its widths: encoder (mu, sigma) at COND_ATOL; a
+# teacher-forced loss (every coin true) at batch POLYDIS_BATCH at the step's
+# limits, its logits at the JAX package's decoder parity
+# (tests/test_pianotree_dec_parity.py:66); the greedy grid by its share of equal
+# cells, whose limit comes from the first card run (share 1.0 on an H100 80GB
+# HBM3 at 700 W; the planted fault, z_chd | z_rhy swapped, 0.80158 there).
+POLYDIS_BATCH = 16
+POLYDIS_LOGIT_ATOL = 1e-4
+POLYDIS_GRID_SHARE_MIN = 0.99
 GN_CONV_SITES, GN_CONV_TWO_INPUT = 44, 12  # per UNet eval: 22 ResBlocks x 2; decoder in_layers
 GN_CONV_BATCH = 64
 FUSED_TRAIN_STEPS = 3  # bf16 train steps through kernel 4 (counted per step)
@@ -2059,6 +2095,337 @@ def drive_mix2_paths(counters, work):
     return training, cli
 
 
+def write_midi_songs(midi_dir, seed):
+    """MIDI_SONGS seeded songs ``song<i>.mid`` (see MIDI_BARS) with the port's
+    ``save_midi``; returns each file's written root per bar."""
+    from polyffusion_tpu_torch.utils import midi as M
+
+    os.makedirs(midi_dir)
+    roots = {}
+    for i in range(MIDI_SONGS):
+        rng = np.random.default_rng(seed + i)
+        first = random_chords(rng, MIDI_BARS // 8)[:, ::4].reshape(MIDI_BARS, 36)  # bar starts
+        bar_roots = first[:, :12].argmax(1)
+        minor = first[np.arange(MIDI_BARS), 12 + (bar_roots + 3) % 12] > 0
+        melody, piano, drums = (M.Instrument(program=0), M.Instrument(program=0),
+                                M.Instrument(program=0, is_drum=True))
+        for bar in range(MIDI_BARS):
+            t0, r = bar * 2.0, int(bar_roots[bar])
+            for pitch in (48 + r, 52 + r - int(minor[bar]), 55 + r):
+                piano.notes.append(M.Note(t0, t0 + 2.0, pitch, 70))
+            for k in range(8):
+                melody.notes.append(M.Note(t0 + k * 0.25, t0 + (k + 1) * 0.25,
+                                           72 + int(rng.integers(0, 12)), 90))
+            for k in range(4):
+                drums.notes.append(M.Note(t0 + k * 0.5, t0 + k * 0.5 + 0.1, (36, 38)[k % 2], 100))
+        path = os.path.join(midi_dir, f"song{i}.mid")
+        M.save_midi(M.MidiFile(instruments=[melody, piano, drums],
+                               time_signatures=[M.TimeSignature(4, 4, 0.0)]), path)
+        if i == MIDI_TEMPO_SONG:
+            with open(path, "rb") as f:
+                data = f.read()
+            first_len = int.from_bytes(data[18:22], "big")
+            body = (b"\x00\xff\x51\x03" + (500000).to_bytes(3, "big")
+                    + b"\x00\xff\x58\x04\x04\x02\x18\x08"
+                    + M._varlen(MIDI_BARS // 2 * 4 * M.DEFAULT_TICKS_PER_BEAT)
+                    + b"\xff\x51\x03" + (600000).to_bytes(3, "big") + b"\x00\xff\x2f\x00")
+            with open(path, "wb") as f:
+                f.write(data[:14] + b"MTrk" + len(body).to_bytes(4, "big") + body
+                        + data[22 + first_len:])
+        roots[f"song{i}.mid"] = bar_roots
+    return roots
+
+
+def drive_midi_ingestion(midi_dir, roots, smi):
+    """``song_from_midi`` on each file (host seconds) and the share of beats
+    whose recognized root is the written one. Returns the songs."""
+    from polyffusion_tpu_torch.data.midi_to_data import song_from_midi
+
+    songs, secs = {}, {}
+    for name, bar_roots in roots.items():
+        t0 = time.perf_counter()
+        songs[name] = song = song_from_midi(os.path.join(midi_dir, name))
+        secs[name] = time.perf_counter() - t0
+        written = np.repeat(bar_roots, 4)
+        n = min(len(written), len(song.chord))
+        whole = float((song.chord[:n, 0] == written[:n]).mean())
+        # the chord matrix counts beats of 0.5 s, as the reference's does
+        # (chord_matrix_from_chordlab): after a tempo change it drifts off the bars
+        n = MIDI_BARS // 2 * 4 if name == f"song{MIDI_TEMPO_SONG}.mid" else n
+        share = float((song.chord[:n, 0] == written[:n]).mean())
+        segments = song.get_whole_song_data()[0].shape[0]
+        log(f"[midi] ingest {name}: {secs[name]:.3f} s on the host, {len(song)} downbeats, "
+            f"{segments} segments, {len(song.chord)} chord beats, root share {share:.4f} over "
+            f"the {n} beats at 120 bpm (limit {MIDI_ROOT_SHARE_MIN}), {whole:.4f} over the song "
+            f"({smi})")
+        if segments != MIDI_BARS // 8 or not share >= MIDI_ROOT_SHARE_MIN:
+            raise AssertionError(f"{name}: {segments} segments, root share {share}")
+    return songs, secs
+
+
+def check_prepared_songs(midi_dir, npz_dir, songs):
+    """``prepare_data`` on the MIDI directory: every file an .npz that
+    ``SegmentDataset.from_dir`` reads, whose whole song is ``song_from_midi``'s,
+    exactly."""
+    from polyffusion_tpu_torch.data import SegmentDataset, SongNpz
+    from polyffusion_tpu_torch.prepare_data import prepare_npz
+
+    t0 = time.perf_counter()
+    counts = prepare_npz(midi_dir, npz_dir)
+    secs = time.perf_counter() - t0
+    ds = SegmentDataset.from_dir(npz_dir)
+    log(f"[midi] prepare_data: {counts} in {secs:.3f} s on the host; SegmentDataset of "
+        f"{len(ds)} segments")
+    if counts["ok"] != MIDI_SONGS or not len(ds):
+        raise AssertionError(f"prepare_data wrote {counts}")
+    for name, song in songs.items():
+        got = SongNpz(name.replace(".mid", ".npz"), npz_dir).get_whole_song_data()
+        for a, b in zip(got, song.get_whole_song_data()):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"{name}: the prepared song differs from song_from_midi's")
+
+
+class RecordedConditions:
+    """Records what the inference CLI's ``song_conditions`` returns while
+    active (the CLI reads it from its module)."""
+
+    def __enter__(self):
+        import polyffusion_tpu_torch.inference as inference
+
+        self.module, self.real, self.calls = inference, inference.song_conditions, []
+
+        def record(*args, **kwargs):
+            out = self.real(*args, **kwargs)
+            self.calls.append(out)
+            return out
+
+        inference.song_conditions = record
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.song_conditions = self.real
+
+
+def drive_midi_cli(counters, work, midi_dir, npz_dir, songs, smi):
+    """The inference CLI's MIDI requests, each with the launch counts set to 0
+    just before it and read just after: (D) ``--from_midi`` with no
+    ``--data_dir``, (D') the same song prepared, (E) inpainting of a second
+    MIDI, on the training path's run directory; (F) ``--from_midi2`` on the
+    chord+txt run directory of ``drive_mix2_paths``; (G) ``--polydis_recon``
+    with a seeded PolyDis checkpoint in the reference layout. DDIM-50, 2
+    segments: 550 kernel-1 launches each. Returns launches and seconds."""
+    import torch
+
+    from polyffusion_tpu_torch.config import load_params
+    from polyffusion_tpu_torch.diffusion.sampler import ddim_q_sample
+    from polyffusion_tpu_torch.diffusion.schedule import make_ddim_schedule, make_schedule
+    from polyffusion_tpu_torch.inference import (
+        build_task_for_inference,
+        polydis_recon,
+        song_conditions,
+    )
+    from polyffusion_tpu_torch.inference import main as infer_main
+    from polyffusion_tpu_torch.models.polydis import PolyDis, PolydisAftertouch
+    from polyffusion_tpu_torch.utils.midi import load_midi
+
+    run, run_mix2, pretrained = (os.path.join(work, d) for d in ("run", "run_mix2", "pretrained"))
+    song = {i: os.path.join(midi_dir, f"song{i}.mid") for i in range(3)}
+    pd_path = os.path.join(work, "polydis_vae", "model_master_final.pt")
+    os.makedirs(os.path.dirname(pd_path))
+    polydis = PolyDis(device="cpu", generator=torch.Generator().manual_seed(33))
+    torch.save({f"module.{k}": v for k, v in polydis.state_dict().items()}, pd_path)
+    ddim = ["--ddim", "--length", "2"]
+    requests = {
+        "D": (run, ["--from_midi", song[0], "--uncond_scale", "5"] + ddim, 1),
+        "D_prepared": (run, ["--data_dir", npz_dir, "--song_fn", "song0.npz",
+                             "--uncond_scale", "5"] + ddim, 1),
+        "E": (run, ["--from_midi", song[0], "--inpaint_from_midi", song[1], "--inpaint_type",
+                    "below"] + ddim, 1),
+        "F": (run_mix2, ["--from_midi", song[0], "--from_midi2", song[2], "--uncond_scale", "5"]
+              + ddim, 1),
+        "G": (run, ["--from_midi", song[0], "--polydis_recon", "--polydis_path", pd_path,
+                    "--uncond_scale", "5"] + ddim, 2),
+    }
+    want = dict({name: 0 for name in counters},
+                packed_attention=ATTENTION_SITES * CLI_DDIM_STEPS)
+    launches, secs, outputs, conds = {}, {}, {}, {}
+    for name, (run_dir, extra, n_mids) in requests.items():
+        out_dir = os.path.join(work, f"midi_{name}")
+        args = ["--chkpt_path", run_dir, "--pretrained_dir", pretrained, "--output_dir", out_dir]
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RecordedConditions() as calls:
+            outputs[name] = infer_main(args + extra)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        (conds[name],) = calls
+        mids = sorted(f for f in os.listdir(out_dir) if f.endswith(".mid"))
+        log(f"[midi] request {name} ({' '.join(os.path.basename(a) for a in extra)}): "
+            f"{secs[name]:.3f} s, launches {launches[name]}, wrote {mids} ({smi})")
+        if launches[name] != want:
+            raise AssertionError(f"expected launches {want}, got {launches[name]}")
+        if len(mids) != n_mids:
+            raise AssertionError(f"expected {n_mids} .mid file(s), found {mids}")
+
+    # D and D': the same condition from the MIDI and from its prepared .npz,
+    # and that condition on the card against the CPU
+    cfg = load_params(os.path.join(run, "params.yaml"))
+    cpu_task = build_task_for_inference(cfg, pretrained, device="cpu")
+    song0 = songs["song0.mid"].get_whole_song_data()
+    want_cond = song_conditions(cpu_task, song0, 2)[0]
+    same_err = float(np.abs(conds["D"][0] - conds["D_prepared"][0]).max())
+    cpu_err = float(np.abs(conds["D_prepared"][0] - want_cond).max())
+    (gen_d,), (gen_dp,) = outputs["D"], outputs["D_prepared"]
+    log(f"[midi] D vs D': condition max_abs_err {same_err:.3g}, output max_abs_diff "
+        f"{float(np.abs(gen_d - gen_dp).max()):.3g}; condition card vs CPU max_abs_err "
+        f"{cpu_err:.3g} (atol {COND_ATOL})")
+    if not (same_err <= COND_ATOL and cpu_err <= COND_ATOL and gen_d.shape == (2, 2, 128, 128)
+            and np.isfinite(gen_d).all()):
+        raise AssertionError("requests D and D' disagree on the song's condition")
+
+    # E: the kept region is song 1's roll at the DDIM grid's last index, under
+    # the session's first draw (its starting noise, seed 0)
+    ((gen_e, mask),) = outputs["E"]
+    dd = make_ddim_schedule(make_schedule(cfg.n_steps, cfg.linear_start, cfg.linear_end), 50,
+                            "uniform", 0.0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    noise = torch.randn((2, cfg.img_h, cfg.img_w, cfg.out_channels), generator=g,
+                        device="cuda").permute(0, 3, 1, 2)
+    orig = torch.as_tensor(songs["song1.mid"].get_whole_song_data()[0][:2], device="cuda")
+    kept = ddim_q_sample(dd, orig, 0, noise).cpu().numpy()
+    keep = mask == 1
+    keep_err = float(np.abs(gen_e[keep] - kept[keep]).max())
+    log(f"[midi] E: output {gen_e.shape}, kept share {keep.mean():.3f}, kept region vs the DDIM "
+        f"q_sample of song 1 at index 0: max_abs_err {keep_err:.3g} (limit {MIDI_KEEP_ATOL})")
+    if not (gen_e.shape == (2, 2, 128, 128) and 0 < keep.mean() < 1
+            and keep_err <= MIDI_KEEP_ATOL):
+        raise AssertionError("request E did not keep song 1's region")
+
+    # F: the chord part from song 0, the texture part from song 2
+    mix2 = build_task_for_inference(load_params(os.path.join(run_mix2, "params.yaml")),
+                                    pretrained, device="cpu")
+    zc = mix2.cfg.chd_z_dim
+    chd_err = float(np.abs(conds["F"][0][..., :zc] - song_conditions(mix2, song0, 2)[0][..., :zc])
+                    .max())
+    txt_want = song_conditions(mix2, songs["song2.mid"].get_whole_song_data(), 2)[0][..., zc:]
+    txt_err = float(np.abs(conds["F"][0][..., zc:] - txt_want).max())
+    log(f"[midi] F: condition {conds['F'][0].shape}: chord part vs song 0 on the CPU "
+        f"max_abs_err {chd_err:.3g}, texture part vs song 2 on the CPU {txt_err:.3g} (atol "
+        f"{COND_ATOL})")
+    if not (chd_err <= COND_ATOL and txt_err <= COND_ATOL):
+        raise AssertionError("request F's condition is not song 0's chords with song 2's texture")
+
+    # G: the re-rendering reads back; then the aftertouch alone, warm
+    out_g = os.path.join(work, "midi_G")
+    recon = load_midi(os.path.join(out_g, "polydis_recon_0.mid"))
+    (gen_g,) = outputs["G"]
+    aftertouch = PolydisAftertouch(model_path=pd_path)
+    after_secs = []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = polydis_recon(aftertouch, gen_g, song0[2], os.path.join(out_g, f"again_{k}.mid"))
+        torch.cuda.synchronize()
+        after_secs.append(time.perf_counter() - t0)
+    notes = sum(len(i.notes) for i in recon.instruments)
+    log(f"[midi] G: polydis_recon_0.mid reads back with {notes} notes; PolyDis aftertouch of "
+        f"{est.shape[0]} windows: {after_secs[0]:.3f} s cold, "
+        f"{statistics.median(after_secs[1:]):.3f} s warm ({smi})")
+    if est.shape != (8, 32, 31, 6):
+        raise AssertionError(f"bad aftertouch grid {est.shape}")
+    return launches, dict(secs, aftertouch_warm=statistics.median(after_secs[1:]))
+
+
+def polydis_tf_logits(model, x, c, pr, noise, swap=False):
+    """Teacher-forced decoder logits of ``run`` (every coin true) from explicit
+    z; ``swap`` decodes z_rhy | z_chd (the planted fault)."""
+    import torch
+
+    (mu_c, std_c), (mu_r, std_r) = model.encode(pr, c)
+    z_c = mu_c + std_c * noise.z_chd.to(model.device)
+    z_r = mu_r + std_r * noise.z_rhy.to(model.device)
+    z = torch.cat([z_r, z_c] if swap else [z_c, z_r], dim=-1)
+    emb, lengths = model.decoder.emb_x(torch.as_tensor(x, device=model.device))
+    return model.decoder(z, emb, lengths, noise.tf1.to(model.device), noise.tf2.to(model.device))
+
+
+def check_polydis_against_cpu(songs):
+    """PolyDis fp32 at its widths, card against CPU on POLYDIS_BATCH 2-bar
+    windows of the ingested songs (the PianoTree padded to its 32 note
+    slots): the encoder; the teacher-forced loss, every term, and the
+    gradients; its logits; the greedy grid. Planted fault: z halves swapped."""
+    import torch
+
+    from polyffusion_tpu_torch.models.polydis import PolyDis
+
+    _, pt, chd, pr = (np.concatenate(a) for a in zip(*(s.get_whole_song_data()
+                                                      for s in songs.values())))
+    b = POLYDIS_BATCH
+    x = np.concatenate([pt.reshape(-1, 32, 20, 6)[:b],
+                        np.tile(np.array([130, 2, 2, 2, 2, 2]), (b, 32, 12, 1))], axis=2)
+    c, prw = chd.reshape(-1, 8, 36)[:b], pr.reshape(-1, 32, 128)[:b]
+    cpu = PolyDis(device="cpu", generator=torch.Generator().manual_seed(31))
+    gpu = PolyDis(device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    noise = cpu.draw_noise(b, torch.Generator().manual_seed(32), 1.0, 1.0, 1.0)
+    out = {}
+    for name, m in (("cuda", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            enc = [t.cpu() for dist in m.encode(prw, c) for t in dist]
+            logits = [t.cpu() for t in polydis_tf_logits(m, x, c, prw, noise)]
+            grid = m.inference(prw, c)
+        m.zero_grad()
+        total, terms = m.loss(x, c, prw, noise)
+        total.backward()
+        grads = {k: p.grad.cpu() for k, p in m.named_parameters()}
+        out[name] = (enc, logits, grid, {k: v.item() for k, v in terms.items()}, grads,
+                     time.perf_counter() - t0)
+    (enc_g, log_g, grid_g, terms_g, grads_g, t_gpu), (enc_c, log_c, grid_c, terms_c, grads_c,
+                                                      t_cpu) = out["cuda"], out["cpu"]
+    enc_err = max((a - w).abs().max().item() for a, w in zip(enc_g, enc_c))
+    logit_err = max((a - w).abs().max().item() for a, w in zip(log_g, log_c))
+    term_err = max(abs(terms_g[k] - w) / abs(w) for k, w in terms_c.items())
+    grad_ratio = max(((grads_g[k] - w).norm() / (STEP_GRAD_RTOL * w.norm() + 1e-9)).item()
+                     for k, w in grads_c.items())
+    share = float((grid_g == grid_c).mean())
+    with torch.no_grad():  # the planted fault: z_chd | z_rhy swapped
+        fault_logits = [t.cpu() for t in polydis_tf_logits(gpu, x, c, prw, noise, swap=True)]
+        (mu_c, _), (mu_r, _) = gpu.encode(prw, c)
+        fault_grid = gpu.decode(mu_r, mu_c)
+    fault_err = max((a - w).abs().max().item() for a, w in zip(fault_logits, log_c))
+    fault_share = float((fault_grid == grid_c).mean())
+    log(f"[midi] PolyDis fp32 card vs CPU (batch {b}): encoder max_abs_err {enc_err:.3g} (atol "
+        f"{COND_ATOL}); teacher-forced loss {terms_g['loss']:.7g} vs {terms_c['loss']:.7g}, "
+        f"worst term rel {term_err:.3g} (limit {STEP_LOSS_RTOL}); gradients {grad_ratio:.3g} x "
+        f"the limit (rel {STEP_GRAD_RTOL} in norm); logits max_abs_err {logit_err:.3g} (atol "
+        f"{POLYDIS_LOGIT_ATOL}); greedy grid {grid_g.shape} equal share {share:.5f} (limit "
+        f"{POLYDIS_GRID_SHARE_MIN}); planted fault (z halves swapped): logits {fault_err:.3g}, "
+        f"grid share {fault_share:.5f}; card {t_gpu:.2f} s, CPU {t_cpu:.2f} s")
+    if not (enc_err <= COND_ATOL and term_err <= STEP_LOSS_RTOL and grad_ratio <= 1.0
+            and logit_err <= POLYDIS_LOGIT_ATOL and share >= POLYDIS_GRID_SHARE_MIN):
+        raise AssertionError("PolyDis on the card disagrees with the CPU")
+    if fault_err <= POLYDIS_LOGIT_ATOL or fault_share >= POLYDIS_GRID_SHARE_MIN:
+        raise AssertionError("the planted PolyDis fault passed the check")
+
+
+def drive_midi_path(counters, work, smi):
+    """The [midi] phase: MIDI songs written, ingested and prepared; the
+    inference CLI's MIDI requests D to G; PolyDis card against CPU. Returns
+    the requests' launches."""
+    midi_dir, npz_dir = os.path.join(work, "midi"), os.path.join(work, "midi_npz")
+    roots = write_midi_songs(midi_dir, seed=200)
+    songs, ingest_secs = drive_midi_ingestion(midi_dir, roots, smi)
+    check_prepared_songs(midi_dir, npz_dir, songs)
+    launches, request_secs = drive_midi_cli(counters, work, midi_dir, npz_dir, songs, smi)
+    check_polydis_against_cpu(songs)
+    summary = dict(ingest_secs=ingest_secs, request_secs=request_secs, card=smi)
+    log(f"[midi] summary {json.dumps(summary)}")
+    return launches
+
+
 def vae_task(name, device, seed, **over):
     """The training CLI's task of a VAE preset, weights from ``seed``."""
     from polyffusion_tpu_torch.config import load_params
@@ -2961,6 +3328,8 @@ def main() -> int:
         check_conditions_against_cpu(work)
         cond_requests, _ = drive_condition_requests(counters, work)
         mix2_training, mix2_cli = drive_mix2_paths(counters, work)
+        # MIDI in (ingestion, prepare_data, the CLI's MIDI flags) and PolyDis out
+        midi_cli = drive_midi_path(counters, work, smi)
         # the pretraining of the frozen encoders, then their run directories as
         # the frozen encoders of sdf_chd8bar and sdf_pnotree
         check_vae_steps_against_cpu(work)
@@ -3019,6 +3388,7 @@ def main() -> int:
                **{f"sampling_{name}": n["packed_attention"] for name, n in cond_requests.items()},
                "training_mix2": mix2_training["packed_attention"],
                "cli_mix2": mix2_cli["packed_attention"],
+               **{f"midi_{name}": n["packed_attention"] for name, n in midi_cli.items()},
                **{f"training_{name}_from_run": n["packed_attention"]
                   for name, n in from_runs.items()},
                **{f"distill_{name}": n["packed_attention"] for name, n in distill.items()},

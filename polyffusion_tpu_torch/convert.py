@@ -181,15 +181,41 @@ def pianotree_decoder_state_from_jax(params: Mapping) -> StateDict:
     return out
 
 
+def polydis_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``PolyDis`` params (``chd_encoder``, ``rhy_encoder``, ``decoder``,
+    ``chd_decoder``) -> the port's ``PolyDis`` state dict, the reference
+    ``DisentangleVAE`` names (its ``model_master_final.pt``)."""
+    parts = (("chd_encoder", chord_encoder_state_from_jax),
+             ("rhy_encoder", texture_encoder_state_from_jax),
+             ("decoder", pianotree_decoder_state_from_jax),
+             ("chd_decoder", chord_decoder_state_from_jax))
+    return {f"{name}.{k}": v for name, convert in parts for k, v in convert(params[name]).items()}
+
+
+def _checkpoint_dict(path: str) -> StateDict:
+    """A reference checkpoint's dict of tensors: a bare one, or the one under
+    ``model`` (a learner ``.pt``) or ``state_dict`` (a Lightning ``.ckpt``)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "state_dict"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+    return obj
+
+
+def reference_state(path: str) -> StateDict:
+    """A reference checkpoint's state dict with DataParallel's ``module.``
+    stripped (a PolyDis ``model_master_final.pt`` loads strictly into the
+    port's ``PolyDis``)."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in _checkpoint_dict(path).items()}
+
+
 def reference_unet_state(path: str) -> StateDict:
     """The UNet state dict of a reference-format checkpoint (legacy learner
     ``.pt`` with a ``model`` dict, Lightning ``.ckpt`` with a ``state_dict``,
     or a bare state dict), the first of ``REFERENCE_PREFIXES`` that matches
     stripped."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("model", "state_dict"):
-        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
-            obj = obj[key]
+    obj = _checkpoint_dict(path)
     for prefix in REFERENCE_PREFIXES:
         hit = {k[len(prefix):]: v for k, v in obj.items() if k.startswith(prefix)}
         if hit:

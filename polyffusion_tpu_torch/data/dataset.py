@@ -1,5 +1,6 @@
 """Song datasets over the npz format (host-side NumPy; a copy of the JAX
-package's ``data/dataset.py``: training items and whole songs for inference).
+package's ``data/dataset.py``: training items, and whole songs for inference
+from an npz file or from a MIDI file's data dict).
 
 The npz song format matches the reference's (``data/dataset.py:27-252``):
 
@@ -38,6 +39,16 @@ class SongNpz:
         self.fpath = os.path.join(data_dir, song_fn)
         data = np.load(self.fpath, allow_pickle=True)
         self._setup(data, use_track)
+
+    @classmethod
+    def from_dict(cls, data: dict, song_fn: str = "<memory>", use_track=(0, 1, 2)):
+        """Build from an in-memory data dict (the --from_midi inference path,
+        reference ``data/datasample.py``)."""
+        self = cls.__new__(cls)
+        self.song_fn = song_fn
+        self.fpath = song_fn
+        self._setup(data, use_track)
+        return self
 
     def _setup(self, data, use_track: Sequence[int]):
         self.use_track = list(use_track)

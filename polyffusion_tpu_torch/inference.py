@@ -2,8 +2,9 @@
 (counterpart of ``polyffusion_tpu/inference.py``):
 
     python -m polyffusion_tpu_torch.inference --chkpt_path <run dir or .pt> \\
-        --data_dir <npz dir> --song_fn <song.npz> [--inpaint_type below] \\
-        [--autoreg] [--ddim | --dpmpp] [--uncond_scale 5] [--gn_conv int8] --output_dir gen/
+        (--data_dir <npz dir> --song_fn <song.npz> | --from_midi <song.mid>) \\
+        [--inpaint_type below] [--autoreg] [--ddim | --dpmpp] [--uncond_scale 5] \\
+        [--gn_conv int8] [--polydis_recon] --output_dir gen/
 
 The sampler is DDPM (all of the schedule's steps, RePaint inpainting) unless
 ``--ddim`` or ``--dpmpp`` asks for a tau-grid one. ``predict`` keeps the JAX
@@ -14,8 +15,10 @@ conditions (P, B, N, d_cond) and output (P, 2B, C, H/2, W). The CFG
 unconditional condition is -1s of the condition's own shape. A
 ``concat_blurry`` task (``sdf_concat``) also sees the blurry image of each
 request's original roll; a distilled student's run directory
-(``polyffusion_tpu_torch.distill``) is sampled on its own tau grid. Runs on the
-GPU unless ``--device cpu`` is given.
+(``polyffusion_tpu_torch.distill``) is sampled on its own tau grid. A MIDI file
+stands in for the song with ``--from_midi`` (its chords recognized,
+``data/midi_to_data.py``), and ``--polydis_recon`` re-renders each generated
+piece through PolyDis. Runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -32,14 +35,17 @@ import torch
 from .config import Params, load_params
 from .convert import reference_unet_state
 from .data.dataset import SongNpz
+from .data.midi_to_data import song_from_midi
 from .device import DeviceLike, resolve_device
 from .diffusion import sampler as S
 from .diffusion.gaussian import q_sample_step
 from .diffusion.schedule import make_ddim_schedule
 from .models.encoders import build_frozen_encoders
+from .models.polydis import PolydisAftertouch
 from .models.unet import GN_CONV_MODES
 from .tasks.sdf import SDFTask, blurry_image
 from .utils.midi_io import prmat2c_to_midi_file
+from .utils.reprs import prmat2c_to_prmat
 
 SAMPLERS = ("ddpm", "ddim", "dpmpp")
 
@@ -89,6 +95,15 @@ def get_autoreg_data(data, axis: int, seg_axis: int = 0) -> torch.Tensor:
     data = torch.as_tensor(data)
     half1, half2 = data.chunk(2, dim=axis)
     return torch.cat([half2, half1.roll(-1, seg_axis)], dim=axis)
+
+
+def half_segments(a: np.ndarray) -> np.ndarray:
+    """(B, C, H, W) segments -> (2B, C, H/2, W) half segments in time order,
+    the layout of long-form (``autoreg``) output. JAX writes an autoreg
+    inpainting's .mid with the whole-segment mask beside half-segment output
+    (``inference.py:646-648``), which raises past its B-th half (fault 6)."""
+    b, c, h, w = a.shape
+    return a.reshape(b, c, 2, h // 2, w).transpose(0, 2, 1, 3, 4).reshape(2 * b, c, h // 2, w)
 
 
 # -- checkpoints ------------------------------------------------------------------
@@ -398,7 +413,7 @@ class InferenceSession:
             head = f"{model_label}_inp{self.repaint_n}_{inpaint_type}"
             os.makedirs(output_dir, exist_ok=True)
             path = os.path.join(output_dir, self._stamp(head, uncond_scale, autoreg) + ".mid")
-            prmat2c_to_midi_file(gen, path, inp_mask=mask)
+            prmat2c_to_midi_file(gen, path, inp_mask=half_segments(mask) if autoreg else mask)
         return gen, mask
 
 
@@ -439,6 +454,20 @@ def build_task_for_inference(cfg: Params, pretrained_dir: Optional[str] = None,
                    gn_conv=gn_conv)
 
 
+def polydis_recon(aftertouch: PolydisAftertouch, gen: np.ndarray, chord: np.ndarray, fn: str,
+                  chd_sample: bool = False) -> np.ndarray:
+    """Re-render generated prmat2c images ``gen`` (N, 2, T, 128) through PolyDis
+    on 2-bar windows, with the song's chord one-hots ``chord`` (S, 32, 36) in
+    8-beat windows, into ``fn`` (JAX ``inference.py:987-1007``). Returns est_x."""
+    prmat = prmat2c_to_prmat(gen)
+    chd = np.asarray(chord)[: prmat.shape[0]]
+    # PolyDis operates on 2-bar (32-step) windows with 8-beat chords
+    chd8 = chd.reshape(-1, 4, 8, 36)[: prmat.shape[0] // 4].reshape(-1, 8, 36)
+    n = min(prmat.shape[0], chd8.shape[0])
+    return aftertouch.reconstruct(prmat[:n].astype(np.float32), chd8[:n].astype(np.float32), fn,
+                                  chd_sample=chd_sample)
+
+
 # -- CLI ------------------------------------------------------------------------------
 
 
@@ -468,13 +497,30 @@ def main(argv=None):
     p.add_argument("--repaint_n", type=int, default=1)
     p.add_argument("--inpaint_type", default=None, choices=[None, "remaining", "below", "above", "bars"])
     p.add_argument("--bar_list", default=None, help="comma-separated bars for --inpaint_type bars")
-    p.add_argument("--data_dir", required=True, help="npz dir for conditioning/inpainting source")
+    p.add_argument("--data_dir", default=None,
+                   help="npz dir for conditioning/inpainting source (needed without --from_midi)")
     p.add_argument("--song_fn", default=None, help="song npz filename")
     p.add_argument("--split_file", default=None, help="pickled (train, val) split; choose from val")
     p.add_argument("--song_index", type=int, default=0, help="index into the val split")
+    p.add_argument("--from_midi", default=None,
+                   help="condition from an arbitrary MIDI file instead of --data_dir/--song_fn")
+    p.add_argument("--from_midi2", default=None,
+                   help="texture (prmat) source MIDI for chord+txt models, both songs cut to the "
+                   "shorter; ignored (with a note) for other condition types, as in JAX")
+    p.add_argument("--inpaint_from_midi", default=None,
+                   help="MIDI supplying the song to be inpainted (default: the conditioning song)")
     p.add_argument("--inpaint_song_fn", default=None, help="npz song (in --data_dir) to be inpainted")
     p.add_argument("--pretrained_dir", default=None, help="dir with pretrained encoder checkpoints")
     p.add_argument("--output_dir", default="exp")
+    p.add_argument("--polydis_recon", action="store_true",
+                   help="also re-render each generated piece through PolyDis into "
+                   "polydis_recon_<i>.mid (generation only: not after --inpaint_type)")
+    p.add_argument("--polydis_path", default=None,
+                   help="PolyDis checkpoint in the reference's layout (model_master_final.pt); "
+                   "without it PolyDis has random weights from a generator seeded 0, as JAX's "
+                   "random init")
+    p.add_argument("--polydis_chd_resample", action="store_true",
+                   help="resample the chord latent from the prior in the PolyDis re-rendering")
     p.add_argument("--split_inpaint", action="store_true",
                    help="only split the source prmat2c by the inpainting mask into a two-track "
                    "MIDI and exit")
@@ -507,18 +553,38 @@ def main(argv=None):
         device=args.device,
     )
 
-    song_fn = args.song_fn
-    if song_fn is None and args.split_file:
-        with open(args.split_file, "rb") as f:
-            split = pickle.load(f)
-        song_fn = split[1][args.song_index]
-    if not song_fn:
-        raise SystemExit("--song_fn or --split_file is required")
-    song_data = SongNpz(song_fn, args.data_dir).get_whole_song_data()
+    if args.from_midi:
+        song_data = song_from_midi(args.from_midi).get_whole_song_data()
+    else:
+        if not args.data_dir:
+            raise SystemExit("--data_dir (or --from_midi) is required")
+        song_fn = args.song_fn
+        if song_fn is None and args.split_file:
+            with open(args.split_file, "rb") as f:
+                split = pickle.load(f)
+            song_fn = split[1][args.song_index]
+        if not song_fn:
+            raise SystemExit("--song_fn or --split_file is required")
+        song_data = SongNpz(song_fn, args.data_dir).get_whole_song_data()
+
+    # chord+txt: optionally take the texture (prmat) from a second MIDI
+    if args.from_midi2:
+        if task.cond_type == "chord+txt":
+            song2 = song_from_midi(args.from_midi2).get_whole_song_data()
+            n = min(song_data[0].shape[0], song2[0].shape[0])
+            song_data = (song_data[0][:n], song_data[1][:n], song_data[2][:n], song2[3][:n])
+        else:
+            print(f"[inference] note: --from_midi2 ignored: cond_type is {task.cond_type!r}, "
+                  "not 'chord+txt'")
     cond, cond_mid, prmat2c = song_conditions(task, song_data, args.length, args.autoreg)
 
-    if args.inpaint_song_fn:
-        prmat2c_inp = SongNpz(args.inpaint_song_fn, args.data_dir).get_whole_song_data()[0]
+    # the inpainting source may come from another song or MIDI
+    if args.inpaint_from_midi or args.inpaint_song_fn:
+        if args.inpaint_from_midi:
+            inp_song = song_from_midi(args.inpaint_from_midi)
+        else:
+            inp_song = SongNpz(args.inpaint_song_fn, args.data_dir)
+        prmat2c_inp = inp_song.get_whole_song_data()[0]
         n = min(len(cond), prmat2c_inp.shape[0])
         cond, prmat2c = cond[:n], prmat2c_inp[:n]
         if cond_mid is not None:
@@ -537,9 +603,13 @@ def main(argv=None):
         print(f"split written to {out}")
         return None
 
+    aftertouch = (PolydisAftertouch(model_path=args.polydis_path, device=args.device)
+                  if args.polydis_recon else None)
+
     # piece-batched long-form: N independent pieces ride the same 2B-1 windows
-    # at batch N in one pass (the reference's --num_generate loop is serial)
-    if args.autoreg and args.num_generate > 1 and not args.inpaint_type:
+    # at batch N in one pass (the reference's --num_generate loop is serial);
+    # the aftertouch path keeps the loop
+    if args.autoreg and args.num_generate > 1 and not args.inpaint_type and aftertouch is None:
         conds = np.broadcast_to(cond[None], (args.num_generate,) + cond.shape).copy()
         cond_mids = np.broadcast_to(cond_mid[None], (args.num_generate,) + cond_mid.shape).copy()
         gen = session.generate(conds, cond_mids, uncond_scale=args.uncond_scale, autoreg=True,
@@ -548,7 +618,7 @@ def main(argv=None):
         return [gen]
 
     outputs = []
-    for _ in range(args.num_generate):
+    for i in range(args.num_generate):
         if args.inpaint_type:
             outputs.append(session.inpaint(
                 prmat2c, args.inpaint_type, cond, cond_mid, autoreg=args.autoreg,
@@ -556,10 +626,15 @@ def main(argv=None):
                 output_dir=args.output_dir, model_label=label,
             ))
         else:
-            outputs.append(session.generate(
+            gen = session.generate(
                 cond, cond_mid, uncond_scale=args.uncond_scale, autoreg=args.autoreg,
                 output_dir=args.output_dir, model_label=label,
-            ))
+            )
+            outputs.append(gen)
+            if aftertouch is not None:
+                polydis_recon(aftertouch, gen, song_data[2],
+                              os.path.join(args.output_dir, f"polydis_recon_{i}.mid"),
+                              chd_sample=args.polydis_chd_resample)
     print(f"wrote {args.num_generate} output(s) to {args.output_dir}")
     return outputs
 

@@ -17,6 +17,7 @@ from ..config import load_params
 from ..convert import (
     chord_encoder_state_from_jax,
     pianotree_encoder_state_from_jax,
+    reference_state,
     texture_encoder_state_from_jax,
 )
 from .gru import BiGRU, gru_cell
@@ -190,16 +191,6 @@ def _load_npz_tree(path: str) -> Dict:
     return tree
 
 
-def _load_pt_state(path: str) -> Dict[str, torch.Tensor]:
-    """A reference checkpoint's state dict: a bare one, or one under ``model``
-    / ``state_dict``, with DataParallel's ``module.`` stripped."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("model", "state_dict"):
-        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
-            obj = obj[key]
-    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in obj.items()}
-
-
 def _under(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     """The keys under ``prefix.``, stripped, or ``sd`` when there are none."""
     hit = {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
@@ -255,7 +246,7 @@ def _encoder_state(pretrained_dir: Optional[str], base: str,
             f"{base}.pt (the reference's pretrained/ checkpoint, or its conversion by the "
             "JAX package)"
         )
-    return from_pt(_load_pt_state(pt_path))
+    return from_pt(reference_state(pt_path))
 
 
 def _pianotree_encoder_keys(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -389,3 +389,16 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 for p in m.parameters():
                     p.uniform_(-bound, bound, generator=generator)
     return module
+
+
+def init_vae_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """``init_weights_`` for the Linear and GRU layers, then U(0, 1), the
+    reference's ``torch.rand``, for the learned inputs that modules hold
+    themselves (``init_input``, ``dec_init_input``, ``dur_sos_token``)."""
+    init_weights_(module, generator)
+    with torch.no_grad():
+        for m in module.modules():
+            if not isinstance(m, (nn.Linear, nn.GRU)):
+                for p in m.parameters(recurse=False):
+                    p.uniform_(0.0, 1.0, generator=generator)
+    return module

@@ -17,7 +17,8 @@ import torch
 from ..data.loader import decompress_batch
 from ..device import DeviceLike, resolve_device
 from ..models.encoders import ChordDecoder, ChordEncoder, chord_recon_loss
-from .vae import VAE, init_vae_weights_
+from ..models.unet import init_vae_weights_
+from .vae import VAE
 
 
 class ChordNoise(NamedTuple):

@@ -23,7 +23,8 @@ from ..device import DeviceLike, resolve_device
 from ..models.encoders import PianoTreeEncoder
 from ..models.pianotree_dec import PianoTreeDecoder, pianotree_recon_loss
 from ..models.polydis import kl_with_standard_normal
-from .vae import VAE, init_vae_weights_
+from ..models.unet import init_vae_weights_
+from .vae import VAE
 
 SEG_STEPS = 32  # a 2-bar segment, in 16th-note steps
 

@@ -127,6 +127,66 @@ def nmat_to_pianotree_repr(
     return pnotree
 
 
+def pnotree_to_nmat(pnotree: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`nmat_to_pianotree_repr` (up to note order within a step)."""
+    n_step = pnotree.shape[0]
+    rows = []
+    for t in range(n_step):
+        for note in pnotree[t]:
+            p = int(note[0])
+            if 0 <= p <= 127:
+                d = int(note[1] << 4 | note[2] << 3 | note[3] << 2 | note[4] << 1 | note[5]) + 1
+                rows.append((t, p, d))
+    if not rows:
+        return np.zeros((0, 3), dtype=np.int64)
+    return np.array(rows, dtype=np.int64)
+
+
+# prmat2c -> prmat / nmat
+
+
+def _round_arr(x: np.ndarray, is_custom_round: bool = False) -> np.ndarray:
+    if is_custom_round:
+        # reference custom_round (utils.py:395-399): 1 only inside (0.95, 1.05)
+        return ((x > 0.95) & (x < 1.05)).astype(np.int64)
+    return np.rint(x).astype(np.int64)
+
+
+def prmat2c_to_prmat(prmat2c: np.ndarray, n_step: int = 32) -> np.ndarray:
+    """Batch of prmat2c images -> duration piano-rolls (reference ``utils.py:240-269``).
+
+    ``prmat2c``: (N, 2, n_step*ratio, 128) -> returns (N*ratio, n_step, 128) int64;
+    duration = 1 + run of sustain pixels immediately after the onset.
+    """
+    prmat2c = np.asarray(prmat2c)
+    if prmat2c.ndim != 4:
+        raise ValueError(f"prmat2c must be (N, 2, T, 128), got shape {prmat2c.shape}")
+    n, _, big_step, n_pitch = prmat2c.shape
+    ratio = big_step // n_step
+    out = np.zeros((n * ratio, n_step, n_pitch), dtype=np.int64)
+    for i in range(n):
+        onset = _round_arr(prmat2c[i, 0])
+        sustain = _round_arr(prmat2c[i, 1])
+        run = sustain_run_lengths(sustain)
+        # duration at an onset (t, p): 1 + run[t+1, p]
+        run_next = np.vstack([run[1:], np.zeros((1, n_pitch), dtype=np.int64)])
+        dur = (1 + run_next) * (onset > 0)
+        for r in range(ratio):
+            out[i * ratio + r] = dur[r * n_step : (r + 1) * n_step]
+    return out
+
+
+def prmat2c_to_nmat(prmat2c_single: np.ndarray) -> np.ndarray:
+    """One (2, n_step, 128) image -> nmat rows (onset, pitch, duration)."""
+    onset = _round_arr(prmat2c_single[0])
+    sustain = _round_arr(prmat2c_single[1])
+    run = sustain_run_lengths(sustain)
+    run_next = np.vstack([run[1:], np.zeros((1, onset.shape[1]), dtype=np.int64)])
+    t, p = np.nonzero(onset > 0)
+    d = 1 + run_next[t, p]
+    return np.stack([t, p, d], axis=1).astype(np.int64)
+
+
 # pitch-shift augmentation (reference utils.py:174-209)
 
 

@@ -34,7 +34,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 37
+    assert int(n_modules) >= 53
     assert bad.strip() == "[]", bad
 
 
@@ -66,6 +66,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from polyffusion_tpu_torch.config import load_params
     from polyffusion_tpu_torch.inference import InferenceSession
     from polyffusion_tpu_torch.models import ChordEncoder
+    from polyffusion_tpu_torch.models.polydis import PolyDis, PolydisAftertouch
     from polyffusion_tpu_torch.tasks import SDFTask
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -77,3 +78,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceSession(task)
     assert InferenceSession(task, device="cpu").device.type == "cpu"
+    for entry in (PolyDis, PolydisAftertouch):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(device=None)
+    assert PolyDis(device="cpu").device.type == "cpu"
+    assert PolydisAftertouch(device="cpu").model.device.type == "cpu"
