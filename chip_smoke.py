@@ -89,7 +89,20 @@ after:
   layout; the warm PolyDis aftertouch timed alone; and PolyDis fp32 at its
   widths card vs CPU (encoder, a teacher-forced loss and its gradients, its
   logits, the greedy grid by its share of equal cells; planted fault: the
-  z_chd | z_rhy halves swapped).
+  z_chd | z_rhy halves swapped);
+- the plain DDPM family and the KL autoencoder (``[ddpm]``,
+  ``[autoencoder]``, last), fp32 at the presets' widths: the DDPM UNet eval
+  and one DDPM train step card vs CPU (fault: the final norm at 32 groups),
+  one autoencoder train step with disc_start 0 (fault: the discriminator's
+  batch norms on running statistics) and the distances of a seeded random
+  LPIPS checkpoint in the reference's layout (fault: the ScalingLayer left
+  out) card vs CPU; ``polyffusion_tpu_torch.main``
+  for ``ddpm`` and ``autoencoder`` at batch 16 (10 steps, one validation and
+  one checkpoint, then 2 resumed; the autoencoder once more with disc_start 0
+  and the LPIPS file), kernel 6 at every GroupNorm backward (45 and 52 a
+  step); the inference CLI on the DDPM run directory (DDPM-1000 at --length
+  1, --ddim at --length 2; no kernel of the port); warm steps of each timed
+  and profiled.
 
 Before the main paths it also holds, card against CPU in fp32 at full width
 with a planted fault each: ``sdf_concat``'s ``blurry_image``, UNet eval and a
@@ -160,6 +173,17 @@ GN_TRAIN_SHAPES = [
     (384, 32, 32, 1), (512, 32, 32, 2), (256, 16, 16, 17), (512, 16, 16, 3),
 ]
 GN_FP32_SHAPES = [(4, 128, 64, 64), (4, 256, 64, 64), (2, 192, 128, 128)]
+# kernel 6 on the fp32 train steps of the plain DDPM UNet and the autoencoder at
+# batch 16: (C, H, W, groups, sites per DDPM step, sites per autoencoder step),
+# 45 and 52 in all (counted by a forward hook, tests/test_torch_gn_bwd_families.py);
+# the DDPM UNet's final norm has 8 groups and its widest concat 64 channels a group
+GN_FAMILY_SHAPES = [
+    (64, 128, 128, 32, 7, 10), (128, 128, 128, 32, 3, 1), (64, 128, 128, 8, 1, 0),
+    (64, 64, 64, 32, 2, 1), (128, 64, 64, 32, 5, 8), (192, 64, 64, 32, 1, 0),
+    (256, 64, 64, 32, 2, 1), (128, 32, 32, 32, 2, 1), (256, 32, 32, 32, 5, 9),
+    (384, 32, 32, 32, 1, 0), (512, 32, 32, 32, 2, 0), (256, 16, 16, 32, 2, 21),
+    (1024, 16, 16, 32, 9, 0), (1280, 16, 16, 32, 1, 0), (2048, 16, 16, 32, 2, 0),
+]
 L2_BYTES = 50 * 2**20  # the H100's L2: cold timings rotate through more than this
 # One fp32 train step, card against CPU: the loss and the gradients' norm to
 # fp32 reassociation over the whole UNet; each parameter's gradient in
@@ -280,6 +304,28 @@ STUDENT_BATCH = 16
 # DDPM-1000 (kernels 1 and 7), 2 segments at scale 1, and one DDIM-50 request
 # at batch 16
 CONCAT_STEPS = 4
+# The plain DDPM family ([ddpm]) and the KL autoencoder ([autoencoder]), fp32 at
+# their presets' widths (TF32 off, as for every fp32 path here). Card vs CPU at
+# batch FAMILY_CHECK_BATCH with a planted fault each: the DDPM UNet eval at the
+# UNet tolerance and one DDPM train step at the step's limits (fault: the final
+# norm at 32 groups, not 8); one autoencoder train step with disc_start 0 (the
+# discriminator's terms and the adaptive weight live; fault: the
+# discriminator's batch norms on running statistics, an nn.BatchNorm2d in eval
+# mode) and the distances of a seeded random LPIPS checkpoint in the
+# reference's layout (fault: the ScalingLayer left out). Then the training CLI
+# at the presets' batch 16: FAMILY_STEPS steps with one validation and one
+# checkpoint, then --resume for FAMILY_RESUME_STEPS; the autoencoder again with
+# disc_start 0 and the LPIPS file. Kernel 6 runs every GroupNorm backward,
+# DDPM_GN_SITES / AE_GN_SITES a step (a validation batch runs none; the
+# adaptive weight's two gradients stop at the decoder's last conv). Then the
+# inference CLI on the DDPM run: the default DDPM-1000 and --ddim (DDIM-50),
+# which launch no kernel of the port (the unmasked sampler has no RePaint
+# epilogue, and the DDPM attention is a plain product, as in the JAX package).
+FAMILY_CHECK_BATCH = 2
+DDPM_GN_SITES, AE_GN_SITES = 45, 52
+FAMILY_STEPS, FAMILY_RESUME_STEPS = 10, 2
+FAMILY_PROFILE = (5, 3)  # (timed, profiled) warm train steps
+DDPM_REQUESTS = (("ddpm1000", [], 1), ("ddim50", ["--ddim"], 2))  # (name, flags, --length)
 # The MIDI input path and PolyDis ([midi]): MIDI_SONGS seeded songs of MIDI_BARS
 # bars of 4/4 at 120 bpm (2 min 8 s, 8 segments each) written with the port's
 # writer, three tracks each (a melody, block triads of a progression drawn with
@@ -763,8 +809,10 @@ def gn_bwd_resident_clusters():
 def check_gn_bwd():
     """GroupNorm backward kernel (kernel 6) against its plain version (and the
     backward of ``F.group_norm`` as a yardstick) at every GroupNorm shape of
-    the bf16 train step (batch 16) and at fp32 shapes that take one CTA and
-    clusters of 2 and 4. Each shape is run as the train step runs it (bf16
+    the bf16 train step (batch 16), at fp32 shapes that take one CTA and
+    clusters of 2 and 4, and at every GroupNorm shape of the fp32 DDPM and
+    autoencoder train steps at batch 16 (GN_FAMILY_SHAPES: 8 groups, and 64
+    channels a group, among them). Each shape is run as the train step runs it (bf16
     gamma, dgamma and dbeta in bf16) and with fp32 parameters: dx within the
     dtype's limit, the fp32 dgamma / dbeta within theirs, and the bf16 call
     giving the same dx and exactly the fp32 dgamma / dbeta cast with ``.to``.
@@ -781,14 +829,17 @@ def check_gn_bwd():
     from polyffusion_tpu_torch.ops.gn_bwd import gn_bwd_plan, gn_bwd_reference, group_norm_bwd
 
     gn_bwd_resident_clusters()
-    cases = [(16, c, hh, ww, torch.bfloat16, sites) for c, hh, ww, sites in GN_TRAIN_SHAPES]
-    cases += [(b, c, hh, ww, torch.float32, 0) for b, c, hh, ww in GN_FP32_SHAPES]
+    cases = [(16, c, hh, ww, torch.bfloat16, 32, {"sdf": sites})
+             for c, hh, ww, sites in GN_TRAIN_SHAPES]
+    cases += [(b, c, hh, ww, torch.float32, 32, {}) for b, c, hh, ww in GN_FP32_SHAPES]
+    cases += [(16, c, hh, ww, torch.float32, groups, {"ddpm": n_ddpm, "autoencoder": n_ae})
+              for c, hh, ww, groups, n_ddpm, n_ae in GN_FAMILY_SHAPES]
     limits = {torch.bfloat16: (GN_BF16_ATOL, GN_BF16_RTOL), torch.float32: (GN_FP32_ATOL,
                                                                            GN_FP32_RTOL)}
-    groups, eps = 32, 1e-5
+    eps = 1e-5
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for b, c, hh, ww, dtype, sites in cases:
+    for b, c, hh, ww, dtype, groups, sites in cases:
         atol, rtol = limits[dtype]
         x, dy, mean_c, inv_c, gamma, beta = gn_bwd_inputs(g, b, c, hh, ww, dtype, groups, eps)
         plan = gn_bwd_plan(b, c, hh, ww, dtype, groups)
@@ -808,7 +859,8 @@ def check_gn_bwd():
         if plan.cluster > 1:
             faults["half-span S1, S2"] = gn_dx_half_span(x, dy, mean_c, inv_c, gamma, groups)
         fault_ratios = {k: limit_ratio(f, want[0], atol, rtol) for k, f in faults.items()}
-        shape = f"B={b} C={c} H={hh} W={ww} {str(dtype).split('.')[1]}"
+        shape = (f"B={b} C={c} H={hh} W={ww} {str(dtype).split('.')[1]}"
+                 + (f" groups={groups}" if groups != 32 else ""))
         if not (ratio <= 1.0 and param_ratio <= 1.0):
             raise AssertionError(f"gn_bwd {shape}: dx max_abs_err {err}, {ratio:.3g} x the limit; "
                                  f"dgamma/dbeta {param_ratio:.3g} x")
@@ -834,14 +886,16 @@ def check_gn_bwd():
         cold_ms = time_in_turns({
             "cold": lambda: group_norm_bwd(*next(turn), groups, param_dtype=dtype)})["cold"]
         bound = gn_bwd_bound(x, x.element_size())
-        row = dict(shape=shape, sites_per_step=sites, cluster=plan.cluster, share=plan.share,
+        row = dict(shape=shape, groups=groups, sites_per_step=sites, cluster=plan.cluster,
+                   share=plan.share,
                    max_abs_err=err, atol=atol, rtol=rtol, limit_ratio=ratio,
                    fault_limit_ratio=min(fault_ratios.values()), fault_limit_ratios=fault_ratios,
                    param_max_abs_err=param_err, param_limit_ratio=param_ratio,
                    want_abs_max=want[0].float().abs().max().item(),
                    ms=ms["kernel"], cold_ms=cold_ms, cold_sets=len(sets), plain_ms=ms["plain"],
                    library_ms=ms["library"], bound_ms=bound, bound_by="bytes")
-        log(f"[kernel] gn_bwd {shape} ({sites} per step; cluster {plan.cluster}): dx max_abs_err "
+        per_step = ", ".join(f"{n} per {k} step" for k, n in sites.items() if n) or "a check"
+        log(f"[kernel] gn_bwd {shape} ({per_step}; cluster {plan.cluster}): dx max_abs_err "
             f"{err:.3g} (|want| max {row['want_abs_max']:.3g}), {ratio:.3g} x the limit (atol "
             f"{atol}, rtol {rtol:.3g}; "
             + ", ".join(f"{k}: {v:.3g} x" for k, v in fault_ratios.items())
@@ -851,10 +905,14 @@ def check_gn_bwd():
             f"F.group_norm bwd {ms['library']:.4f} ms  bound {bound:.4f} ms (bytes)")
         rows.append(row)
         del x, dy, got, got_p, want, xl, y, sets, faults
-    step = {k: sum(r["sites_per_step"] * r[k] for r in rows)
-            for k in ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms")}
-    log("[kernel] gn_bwd over the train step's 56 GroupNorm backwards (summed over the sites): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in step.items()))
+    for model, n in (("sdf", GROUPNORM_SITES), ("ddpm", DDPM_GN_SITES),
+                     ("autoencoder", AE_GN_SITES)):
+        step = {k: sum(r["sites_per_step"].get(model, 0) * r[k] for r in rows)
+                for k in ("ms", "cold_ms", "plain_ms", "library_ms", "bound_ms")}
+        if sum(r["sites_per_step"].get(model, 0) for r in rows) != n:
+            raise AssertionError(f"gn_bwd: the {model} shapes do not add up to its {n} sites")
+        log(f"[kernel] gn_bwd over the {model} train step's {n} GroupNorm backwards (summed over "
+            "the sites): " + ", ".join(f"{k} {v:.4f}" for k, v in step.items()))
     return rows
 
 
@@ -2449,16 +2507,103 @@ def vae_batch(data, name, b, device):
     return empty.to(device), pnotree.to(device, torch.int16), empty.to(device), empty.to(device)
 
 
+def on_device(values, device):
+    """A batch or noise tuple with its tensors moved to ``device`` (other
+    fields, e.g. a global step, as they are)."""
+    import torch
+
+    moved = [v.to(device) if torch.is_tensor(v) else v for v in values]
+    return type(values)(*moved) if hasattr(values, "_fields") else tuple(moved)
+
+
+def step_card_vs_cpu(label, name, batch, noise, seed, over=None, exact_zero=(), fault=None,
+                     cudnn=True, gate=True):
+    """One fp32 train step of the preset ``name`` (with the overrides
+    ``over``) on the card against the CPU: the same weights (from ``seed``),
+    batch and noise (given on the CPU); the loss and every metric, the
+    gradients per tensor and their norm, and the updated parameters, within
+    the limits of the sdf step check. A gradient named in ``exact_zero`` is
+    zero in exact arithmetic: both sides' must lie under STEP_GRAD_RTOL times
+    the norm of its module's weight's. ``fault(task)`` plants a fault in a
+    fresh card task, whose loss and metrics must then miss the limit. With
+    ``cudnn`` false the card's step runs PyTorch's own convolution kernels.
+    Logs one line; raises where a check fails, unless ``gate`` is false (a
+    reading only). Returns the card step's kernel-6 launches."""
+    import torch
+
+    from polyffusion_tpu_torch.ops.gn_bwd import group_norm_bwd
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+
+    over = over or {}
+    out = {}
+    for device in ("cuda", "cpu"):
+        cfg, task = vae_task(name, device, seed=seed, **over)
+        state = create_state(task.model, cfg.learning_rate, cfg.max_grad_norm)
+        group_norm_bwd.launches = 0
+        torch.backends.cudnn.enabled = cudnn or device == "cpu"
+        t0 = time.perf_counter()
+        metrics = make_train_step(task)(state, on_device(batch, device), seed=0,
+                                        noise=on_device(noise, device))
+        torch.backends.cudnn.enabled = True
+        metrics = {k: v.item() for k, v in metrics.items()}
+        params = {k: v.detach().cpu() for k, v in state.params().items()}
+        grads = {k: v.grad.cpu() for k, v in state.params().items()}
+        out[device] = (metrics, params, grads, time.perf_counter() - t0, group_norm_bwd.launches)
+        del task, state
+    (got_m, got, got_g, t_gpu, launches), (want_m, want, want_g, t_cpu, _) = out["cuda"], out["cpu"]
+
+    def rel_errors(metrics):
+        return {k: abs(metrics[k] - w) / max(abs(w), 1e-30) for k, w in want_m.items()
+                if k != "grad_norm" or "grad_norm" in metrics}
+
+    errs = rel_errors(got_m)
+    grad_ratio, worst = 0.0, ""
+    for k, w in want_g.items():
+        if k in exact_zero:
+            scale = want_g[k[:-len("bias")] + "weight"].norm()
+            r = (max(got_g[k].norm(), w.norm()) / (STEP_GRAD_RTOL * scale)).item()
+        else:
+            r = ((got_g[k] - w).norm() / (STEP_GRAD_RTOL * w.norm() + 1e-9)).item()
+        if r > grad_ratio:
+            grad_ratio, worst = r, k
+    err = torch.cat([(got[k] - w).abs().flatten() for k, w in want.items()])
+    share = (err > STEP_PARAM_TIGHT).float().mean().item()
+    lr = cfg.learning_rate
+    fault_note = ""
+    if fault is not None:
+        _, task = vae_task(name, "cuda", seed=seed, **over)
+        fault(task)
+        _, fault_m = task.loss_fn(on_device(batch, "cuda"), on_device(noise, "cuda"))
+        fault_err = max(v for k, v in rel_errors({k: v.item() for k, v in fault_m.items()}).items()
+                        if k != "grad_norm")
+        fault_note = f"; planted fault: worst metric rel {fault_err:.3g}"
+        del task
+    label += "" if cudnn else " (the card without cuDNN)"
+    label += "" if gate else " (a reading, not gated)"
+    log(f"{label} card vs CPU: loss {got_m['loss']:.7g} vs {want_m['loss']:.7g}; rel errors "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (limits: metrics "
+        f"{STEP_LOSS_RTOL}, grad_norm {STEP_NORM_RTOL}){fault_note}; gradients per tensor "
+        f"{grad_ratio:.3g} x the limit (rel {STEP_GRAD_RTOL} in norm; worst {worst}); params "
+        f"max_abs_err {err.max().item():.3g} (limit {2 * lr:.3g}), share above "
+        f"{STEP_PARAM_TIGHT}: {share:.3g} (limit {STEP_PARAM_SHARE}); kernel-6 launches {launches}; "
+        f"card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
+    if gate and not (all(v <= (STEP_NORM_RTOL if k == "grad_norm" else STEP_LOSS_RTOL)
+                         for k, v in errs.items())
+                     and grad_ratio <= 1.0 and err.max().item() <= 2 * lr
+                     and share <= STEP_PARAM_SHARE):
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+    if fault is not None and not fault_err > STEP_LOSS_RTOL:
+        raise AssertionError(f"{label}: the limits do not catch the planted fault")
+    return launches
+
+
 def check_vae_steps_against_cpu(work):
     """One fp32 train step of ``chd_8bar`` (full width, its batch 128) and of
     ``pnotree_vae`` (full width, PNO_CHECK_BATCH items = 4 segments) on the card
-    against the CPU: same weights, batch, noise and teacher-forcing coins (drawn
-    on the CPU at the presets' step-0 rates); the loss and every metric, the
-    gradients per tensor and their norm, and the updated parameters, within the
-    limits of the sdf step check."""
+    against the CPU (``step_card_vs_cpu``): same weights, batch, noise and
+    teacher-forcing coins (drawn on the CPU at the presets' step-0 rates)."""
     import torch
 
-    from polyffusion_tpu_torch.train import create_state, make_train_step
     from polyffusion_tpu_torch.train.schedulers import make_param_scheduler
 
     data = os.path.join(work, "songs")
@@ -2468,40 +2613,9 @@ def check_vae_steps_against_cpu(work):
         batch = vae_batch(data, name, b, "cpu")
         sched = make_param_scheduler(cfg).step(0)
         noise = cpu_task.draw_noise(batch, torch.Generator().manual_seed(22), sched)
-        out = {}
-        for device in ("cuda", "cpu"):
-            task = cpu_task if device == "cpu" else vae_task(name, "cuda", seed=21)[1]
-            state = create_state(task.model, cfg.learning_rate, cfg.max_grad_norm)
-            t0 = time.perf_counter()
-            metrics = make_train_step(task)(state, tuple(t.to(device) for t in batch), seed=0,
-                                            noise=type(noise)(*(t.to(device) for t in noise)))
-            metrics = {k: v.item() for k, v in metrics.items()}
-            params = {k: v.detach().cpu() for k, v in state.params().items()}
-            grads = {k: v.grad.cpu() for k, v in state.params().items()}
-            out[device] = (metrics, params, grads, time.perf_counter() - t0)
-            del task, state
-        (got_m, got, got_g, t_gpu), (want_m, want, want_g, t_cpu) = out["cuda"], out["cpu"]
-        errs = {k: abs(got_m[k] - w) / abs(w) for k, w in want_m.items()}
-        grad_ratio, worst = 0.0, ""
-        for k, w in want_g.items():
-            r = ((got_g[k] - w).norm() / (STEP_GRAD_RTOL * w.norm() + 1e-9)).item()
-            if r > grad_ratio:
-                grad_ratio, worst = r, k
-        err = torch.cat([(got[k] - w).abs().flatten() for k, w in want.items()])
-        share = (err > STEP_PARAM_TIGHT).float().mean().item()
-        lr = cfg.learning_rate
-        log(f"[pretrain] {name} fp32 step (batch {b}, coins at {sched}) card vs CPU: loss "
-            f"{got_m['loss']:.7g} vs {want_m['loss']:.7g}; rel errors "
-            f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (limits: metrics "
-            f"{STEP_LOSS_RTOL}, grad_norm {STEP_NORM_RTOL}); gradients per tensor "
-            f"{grad_ratio:.3g} x the limit (rel {STEP_GRAD_RTOL} in norm; worst {worst}); params "
-            f"max_abs_err {err.max().item():.3g} (limit {2 * lr:.3g}), share above "
-            f"{STEP_PARAM_TIGHT}: {share:.3g} (limit {STEP_PARAM_SHARE}); card {t_gpu:.2f} s "
-            f"(first call), CPU {t_cpu:.2f} s")
-        if not (all(v <= (STEP_NORM_RTOL if k == "grad_norm" else STEP_LOSS_RTOL)
-                    for k, v in errs.items())
-                and grad_ratio <= 1.0 and err.max().item() <= 2 * lr and share <= STEP_PARAM_SHARE):
-            raise AssertionError(f"the {name} fp32 train step on the card disagrees with the CPU")
+        del cpu_task
+        step_card_vs_cpu(f"[pretrain] {name} fp32 step (batch {b}, coins at {sched})", name,
+                         batch, noise, seed=21)
 
 
 def run_training_cli(counters, args, label):
@@ -2569,25 +2683,34 @@ def drive_vae_training(counters, work):
 
 def profile_vae_steps(name, work):
     """Warm fp32 train steps of a VAE preset at full width and its batch on
-    the card: ms per step on the host clock and from CUDA events over the
-    timed steps, then ``torch.profiler`` over the profiled ones: device busy
-    ms and idle share, device kernels per step. Returns those numbers."""
+    the card (``profile_steps``, at the preset's step-0 teacher forcing)."""
+    from polyffusion_tpu_torch.train.schedulers import make_param_scheduler
+
+    cfg, task = vae_task(name, "cuda", seed=23, **({"batch_size": PNO_BATCH}
+                                                    if name == "pnotree_vae" else {}))
+    batch = vae_batch(os.path.join(work, "songs"), name, cfg.batch_size, "cuda")
+    return profile_steps(f"[pretrain] {name}", cfg, task, batch, VAE_PROFILE[name],
+                         make_param_scheduler(cfg).step(0))
+
+
+def profile_steps(tag, cfg, task, batch, counts, sched=None):
+    """``counts`` = (timed, profiled) warm train steps of ``task`` on
+    ``batch`` on the card: ms per step on the host clock and from CUDA events
+    over the timed steps, then ``torch.profiler`` over the profiled ones:
+    device busy ms and idle share, device kernels per step. Returns those
+    numbers."""
+    import types
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from polyffusion_tpu_torch.profile_train import kernel_launches
     from polyffusion_tpu_torch.profile_unet import breakdown
     from polyffusion_tpu_torch.train import create_state, make_train_step
-    from polyffusion_tpu_torch.train.schedulers import make_param_scheduler
 
-    import types
-
-    timed, profiled = VAE_PROFILE[name]
-    cfg, task = vae_task(name, "cuda", seed=23, **({"batch_size": PNO_BATCH}
-                                                    if name == "pnotree_vae" else {}))
-    batch = vae_batch(os.path.join(work, "songs"), name, cfg.batch_size, "cuda")
+    timed, profiled = counts
     state = create_state(task.model, cfg.learning_rate, cfg.max_grad_norm)
-    step, sched = make_train_step(task), make_param_scheduler(cfg).step(0)
+    step = make_train_step(task)
 
     def run(n):
         for _ in range(n):
@@ -2609,7 +2732,7 @@ def profile_vae_steps(name, work):
         t0 = time.perf_counter()
         run(profiled)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    log(f"[pretrain] {name} fp32 train step at batch {cfg.batch_size}, under torch.profiler "
+    log(f"{tag} fp32 train step at batch {cfg.batch_size}, under torch.profiler "
         f"({profiled} warm steps):")
     averages = prof.key_averages()  # once: both readers take the same table
     prof = types.SimpleNamespace(key_averages=lambda: averages)
@@ -2619,7 +2742,7 @@ def profile_vae_steps(name, work):
     out = dict(batch=cfg.batch_size, host_ms_per_step=host_ms, event_ms_per_step=event_ms,
                busy_ms_per_step=busy_ms / profiled if busy_ms else None,
                idle_share=1 - busy_ms / wall_ms if busy_ms else None, kernels_per_step=kernels)
-    log(f"[pretrain] {name}: {host_ms:.3f} ms/step host clock, {event_ms:.3f} ms/step CUDA "
+    log(f"{tag}: {host_ms:.3f} ms/step host clock, {event_ms:.3f} ms/step CUDA "
         f"events (mean of {timed}); device busy {busy}, idle share "
         f"{out['idle_share'] if busy_ms else 'not measured'} of the profiled window; "
         f"{kernels:.0f} device kernels/step")
@@ -3233,6 +3356,271 @@ def drive_concat_path(counters, work):
     return launches, secs
 
 
+def write_random_lpips(path, seed):
+    """A seeded random LPIPS checkpoint in the reference's layout: the VGG16
+    trunk as ``net.slice<s>.<idx>``, nonnegative ``lin<k>.model.1`` heads and
+    the ScalingLayer's buffers."""
+    import torch
+
+    from polyffusion_tpu_torch.models import init_weights_
+    from polyffusion_tpu_torch.models.lpips import LPIPS, SCALE, SHIFT
+
+    model = init_weights_(LPIPS(), torch.Generator().manual_seed(seed))
+    sd = {k: (v.abs() if k.startswith("lin") else v) for k, v in model.state_dict().items()}
+    sd["scaling_layer.shift"] = torch.tensor(SHIFT)[None, :, None, None]
+    sd["scaling_layer.scale"] = torch.tensor(SCALE)[None, :, None, None]
+    torch.save(sd, path)
+
+
+def check_ddpm_against_cpu():
+    """The full-width fp32 DDPM UNet card vs CPU at FAMILY_CHECK_BATCH: one
+    eval at the UNet tolerance, then one train step (``step_card_vs_cpu``,
+    DDPM_GN_SITES kernel-6 launches on the card); the planted fault of both,
+    the final norm at 32 groups, must miss its limit."""
+    import torch
+
+    from polyffusion_tpu_torch.tasks.ddpm import DDPMNoise
+
+    b = FAMILY_CHECK_BATCH
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((b, 2, 128, 128)).astype(np.float32))
+    t = torch.tensor([37, 802])
+    out = {}
+    for device in ("cuda", "cpu"):
+        _, task = vae_task("ddpm", device, seed=31)
+        with torch.no_grad():
+            out[device] = task.apply_eps(x.to(device), t.to(device)).cpu()
+            if device == "cuda":
+                task.unet.norm.groups = 32
+                fault = task.apply_eps(x.to(device), t.to(device)).cpu()
+        del task
+    ratio = limit_ratio(out["cuda"], out["cpu"], UNET_ATOL, UNET_RTOL)
+    fault_ratio = limit_ratio(fault, out["cpu"], UNET_ATOL, UNET_RTOL)
+    log(f"[ddpm] full-width fp32 UNet eval (B={b}) card vs CPU: max_abs_err "
+        f"{(out['cuda'] - out['cpu']).abs().max().item():.3g}, {ratio:.3g} x the limit (atol "
+        f"{UNET_ATOL}, rtol {UNET_RTOL}); planted fault (final norm at 32 groups): "
+        f"{fault_ratio:.3g} x")
+    if not (ratio <= 1.0 and fault_ratio > 1.0):
+        raise AssertionError("the full-width DDPM UNet on the card disagrees with the CPU, or "
+                             "the limit misses the planted fault")
+    x0 = torch.from_numpy((rng.random((b, 2, 128, 128)) > 0.97).astype(np.uint8))
+    noise = DDPMNoise(t, torch.from_numpy(rng.standard_normal((b, 2, 128, 128)).astype(np.float32)))
+
+    def fault32(task):
+        task.unet.norm.groups = 32
+
+    launches = step_card_vs_cpu(f"[ddpm] full-width fp32 train step (B={b})", "ddpm",
+                                (x0, None, None, None), noise, seed=31, fault=fault32)
+    if launches != DDPM_GN_SITES:
+        raise AssertionError(f"the DDPM step launched kernel 6 {launches} times, not "
+                             f"{DDPM_GN_SITES}")
+
+
+def running_stats_fault(task):
+    """The planted fault of the autoencoder check: each of the discriminator's
+    batch norms on running statistics (mean 0, variance 1), as an
+    ``nn.BatchNorm2d`` computes in eval mode."""
+    import types
+
+    import torch.nn.functional as F
+
+    from polyffusion_tpu_torch.models.losses import TrainModeBatchNorm
+
+    def forward(self, x):
+        c = x.shape[1]
+        return F.batch_norm(x, x.new_zeros(c), x.new_ones(c), self.weight, self.bias,
+                            training=False, eps=self.eps)
+
+    for m in task.model.disc.modules():
+        if isinstance(m, TrainModeBatchNorm):
+            m.forward = types.MethodType(forward, m)
+
+
+def check_autoencoder_against_cpu(lpips_path):
+    """One full-width fp32 autoencoder train step at FAMILY_CHECK_BATCH card vs
+    CPU (``step_card_vs_cpu``) with disc_start 0, AE_GN_SITES kernel-6
+    launches on the card (planted fault: ``running_stats_fault``); then the
+    LPIPS distances of the checkpoint at ``lpips_path`` card vs CPU at the
+    step's metric limit (planted fault: the ScalingLayer left out). The step
+    runs without LPIPS: its gradient through the unit normalisation of
+    near-zero feature vectors is ill-conditioned (the CPU with 1 and 8
+    threads differs by 6.6e-5 in relative norm, against 8e-6 without it).
+    The held step runs the card's convolutions without cuDNN: cuDNN's fp32
+    algorithms for the discriminator's kernel-4 convolutions move its first
+    layer's gradients, and through the generator's term (the adaptive
+    weight at its clip, 1e4 x 0.5) every autoencoder gradient, by some 1.6e-3
+    in relative norm, 16 x the limit (without cuDNN 1.5e-5); the same step
+    with cuDNN follows as a reading."""
+    import torch
+
+    from polyffusion_tpu_torch.convert import reference_state
+    from polyffusion_tpu_torch.models.lpips import LPIPS, lpips_state_from_torch
+    from polyffusion_tpu_torch.tasks.autoencoder import AENoise
+
+    b = FAMILY_CHECK_BATCH
+    rng = np.random.default_rng(41)
+    x0 = torch.from_numpy((rng.random((b, 2, 128, 128)) > 0.97).astype(np.uint8))
+    noise = AENoise(torch.from_numpy(rng.standard_normal((b, 4, 16, 16)).astype(np.float32)), 0)
+    # the attention's key bias: the softmax over the keys does not see a shift
+    # that is the same for every key
+    zero = tuple(f"ae.{half}.mid.attn_1.k.bias" for half in ("encoder", "decoder"))
+    args = (f"[autoencoder] full-width fp32 train step (B={b}, disc_start 0)", "autoencoder",
+            (x0, None, None, None), noise)
+    launches = step_card_vs_cpu(*args, seed=41, over=dict(disc_start=0), exact_zero=zero,
+                                fault=running_stats_fault, cudnn=False)
+    if launches != AE_GN_SITES:
+        raise AssertionError(f"the autoencoder step launched kernel 6 {launches} times, not "
+                             f"{AE_GN_SITES}")
+    step_card_vs_cpu(*args, seed=41, over=dict(disc_start=0), exact_zero=zero, gate=False)
+
+    x = torch.cat([x0.float(), torch.zeros(b, 1, 128, 128)], dim=1)  # the padded roll
+    y = torch.from_numpy(rng.standard_normal((b, 3, 128, 128)).astype(np.float32)) * 0.5
+    sd = lpips_state_from_torch(reference_state(lpips_path))
+    dist = {}
+    for device in ("cuda", "cpu"):
+        model = LPIPS()
+        model.load_state_dict(sd, strict=True)
+        model.to(device).eval()
+        with torch.no_grad():
+            dist[device] = model(x.to(device), y.to(device)).cpu()
+            if device == "cuda":
+                model.shift.zero_()
+                model.scale.fill_(1.0)
+                fault = model(x.to(device), y.to(device)).cpu()
+    err = ((dist["cuda"] - dist["cpu"]).abs() / dist["cpu"].abs()).max().item()
+    fault_err = ((fault - dist["cpu"]).abs() / dist["cpu"].abs()).max().item()
+    log(f"[autoencoder] LPIPS (full VGG16, seeded random weights in the reference's layout) at "
+        f"B={b}, 128 x 128, card vs CPU: distances {dist['cpu'].tolist()}, max rel err {err:.3g} "
+        f"(limit {STEP_LOSS_RTOL}); planted fault (ScalingLayer left out): {fault_err:.3g}")
+    if not (err <= STEP_LOSS_RTOL and fault_err > STEP_LOSS_RTOL):
+        raise AssertionError("LPIPS on the card disagrees with the CPU, or the limit misses the "
+                             "planted fault")
+
+
+def drive_family_training(counters, work, name, run_name, sets, sites):
+    """``polyffusion_tpu_torch.main --model <name>`` (with the ``--set``s
+    ``sets``) at the preset's batch 16: FAMILY_STEPS steps with one
+    validation and one checkpoint, then ``--resume`` for FAMILY_RESUME_STEPS,
+    each with the launch counts set to 0 just before and read just after:
+    kernel 6 ``sites`` times a step, no other kernel. Returns (launches over
+    both runs, seconds of each, the train records)."""
+    from polyffusion_tpu_torch.main import main as train_main
+
+    data, run = os.path.join(work, "songs"), os.path.join(work, run_name)
+    args = ["--model", name, "--output_dir", run, "--data_dir", data, "--seed", "0",
+            "--log_every", "1", "--save_every", "1000"]
+    for kv in sets:
+        args += ["--set", kv]
+    totals = {k: 0 for k in counters}
+    secs = []
+    for n, resume in ((FAMILY_STEPS, []), (FAMILY_STEPS + FAMILY_RESUME_STEPS, ["--resume"])):
+        state, sec, got, _ = run_with_counts(counters, train_main,
+                                             args + ["--max_steps", str(n)] + resume)
+        steps = n - (FAMILY_STEPS if resume else 0)
+        want = dict({k: 0 for k in counters}, gn_bwd=sites * steps)
+        log(f"[{name}] {run_name} {'resumed ' if resume else ''}run: {steps} steps and one "
+            f"validation in {sec:.3f} s (with setup), launches {got}")
+        if got != want or state.step != n:
+            raise AssertionError(f"expected launches {want} and step {n}, got {got} at step "
+                                 f"{state.step}")
+        secs.append(sec)
+        for k in totals:
+            totals[k] += got[k]
+    records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+    train = [r for r in records if "train/loss" in r]
+    val = [r for r in records if "val/loss" in r]
+    values = [v for r in train + val for k, v in r.items() if k.startswith(("train/", "val/"))]
+    if not (len(train) == FAMILY_STEPS + FAMILY_RESUME_STEPS and np.isfinite(values).all()):
+        raise AssertionError(f"{run_name}: bad metrics {records}")
+    if [r["step"] for r in val] != [FAMILY_STEPS, FAMILY_STEPS + FAMILY_RESUME_STEPS]:
+        raise AssertionError(f"{run_name}: validation at steps {[r['step'] for r in val]}")
+    if not os.path.getsize(os.path.join(run, "chkpts", "last.pt")):
+        raise AssertionError(f"{run_name}: no checkpoint written")
+    log(f"[{name}] {run_name}: losses {[round(r['train/loss'], 5) for r in train]}, val "
+        f"{[round(r['val/loss'], 5) for r in val]}; last step {1e3 / train[-1]['steps_per_sec']:.3f} "
+        f"ms (host clock, metrics.jsonl)")
+    return totals, secs, train
+
+
+def drive_ddpm_requests(counters, work):
+    """The inference CLI on the DDPM run directory: each of DDPM_REQUESTS
+    (the default DDPM-1000 at --length 1, --ddim at --length 2), with the
+    launch counts set to 0 just before and read just after (none may
+    launch). Returns the seconds of each."""
+    from polyffusion_tpu_torch.inference import main as infer_main
+    from polyffusion_tpu_torch.utils.midi import load_midi
+
+    zero = {k: 0 for k in counters}
+    secs = {}
+    for name, flags, length in DDPM_REQUESTS:
+        out = os.path.join(work, f"gen_{name}")
+        gens, secs[name], got, _ = run_with_counts(
+            counters, infer_main, ["--chkpt_path", os.path.join(work, "run_ddpm"), "--length",
+                                   str(length), "--output_dir", out] + flags)
+        mids = sorted(os.listdir(out))
+        notes = sum(len(i.notes) for f in mids for i in load_midi(os.path.join(out, f)).instruments)
+        log(f"[ddpm] inference CLI {name} ({' '.join(flags + ['--length', str(length)])}): "
+            f"{secs[name]:.3f} s with setup, launches {got}, wrote {mids} ({notes} notes)")
+        if got != zero:
+            raise AssertionError(f"the DDPM request {name} launched a kernel: {got}")
+        if not (len(gens) == 1 and gens[0].shape == (length, 2, 128, 128)
+                and np.isfinite(gens[0]).all() and len(mids) == 1 and mids[0].startswith("ddpm_")):
+            raise AssertionError(f"bad DDPM request {name}: {mids}")
+    return secs
+
+
+def family_batch(work, name):
+    """The preset's batch 16 of song segments on the card, as the feeder sends
+    it to these tasks (prmat2c as uint8, the other fields unread)."""
+    import torch
+
+    prmat2c = song_batch(os.path.join(work, "songs"), 16)[0]
+    return (prmat2c.to("cuda", torch.uint8), None, None, None)
+
+
+def drive_family_paths(counters, work):
+    """The plain DDPM family ([ddpm]) and the KL autoencoder
+    ([autoencoder]): the card-vs-CPU checks, the training CLI runs, the DDPM
+    requests and warm steps profiled (``profile_steps``). Returns kernel 6's
+    launches by path; logs a summary JSON line."""
+    lpips_path = os.path.join(work, "lpips_vgg.pth")
+    write_random_lpips(lpips_path, seed=7)
+    summary = {}
+    t0 = time.perf_counter()
+    check_ddpm_against_cpu()
+    launches, secs, _ = drive_family_training(counters, work, "ddpm", "run_ddpm", [],
+                                              DDPM_GN_SITES)
+    paths = {"ddpm_cli": launches["gn_bwd"]}
+    summary["ddpm"] = dict(cli_secs=secs, request_secs=drive_ddpm_requests(counters, work))
+    cfg, task = vae_task("ddpm", "cuda", seed=51)
+    summary["ddpm"]["step"] = profile_steps("[ddpm]", cfg, task, family_batch(work, "ddpm"),
+                                            FAMILY_PROFILE)
+    del task
+    summary["ddpm"]["phase_secs"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    check_autoencoder_against_cpu(lpips_path)
+    summary["autoencoder"] = {}
+    for run_name, sets in (("run_ae", []),
+                           ("run_ae_disc0", ["disc_start=0", f"lpips_path={lpips_path}"])):
+        launches, secs, train = drive_family_training(counters, work, "autoencoder", run_name,
+                                                      sets, AE_GN_SITES)
+        factors = {r["train/disc_factor"] for r in train}
+        lpips_on = all("train/p_loss" in r for r in train)
+        if factors != ({1.0} if sets else {0.0}) or lpips_on != bool(sets):
+            raise AssertionError(f"{run_name}: disc_factor {factors}, LPIPS term {lpips_on}")
+        paths[f"autoencoder_cli{'_disc0' if sets else ''}"] = launches["gn_bwd"]
+        summary["autoencoder"][f"{run_name}_cli_secs"] = secs
+    cfg, task = vae_task("autoencoder", "cuda", seed=52, disc_start=0, lpips_path=lpips_path)
+    summary["autoencoder"]["step"] = profile_steps("[autoencoder] (disc_start 0, LPIPS)", cfg,
+                                                   task, family_batch(work, "autoencoder"),
+                                                   FAMILY_PROFILE)
+    del task
+    summary["autoencoder"]["phase_secs"] = time.perf_counter() - t0
+    log(f"[family] summary {json.dumps(summary)}")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3345,6 +3733,8 @@ def main() -> int:
         distill_rows = profile_distill_steps(work)
         students, student_secs = drive_student_requests(counters, work)
         concat, concat_secs = drive_concat_path(counters, work)
+        # the plain DDPM family and the KL autoencoder, fp32 at their widths
+        family = drive_family_paths(counters, work)
         summary = dict(steps=distill_rows, cli_stage_ms=distill_ms, request_secs=student_secs,
                        request_batch=STUDENT_BATCH)
         log(f"[distill] summary {json.dumps(summary)}")
@@ -3418,7 +3808,7 @@ def main() -> int:
                **{f"training_{name}_from_run": n["gn_bwd"] for name, n in from_runs.items()},
                "distill_cli": distill["cli"]["gn_bwd"],
                "distill_cli_chain": distill["cli_chain"]["gn_bwd"],
-               "concat_training": concat["training"]["gn_bwd"]},
+               "concat_training": concat["training"]["gn_bwd"], **family},
               gn_rows, gn_rows[0], gn_rows),
         # B=2 2x128x128 fp32: request A's sampler batch
         entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",

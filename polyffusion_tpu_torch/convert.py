@@ -6,6 +6,8 @@ way ``polyffusion_tpu/convert/torch_export.py`` maps it:
 
     flax Dense kernel (in, out)          -> Linear weight (out, in)
     flax Conv kernel (kH, kW, I, O)      -> Conv2d weight (O, I, kH, kW)
+    flax ConvTranspose kernel (kH, kW, O, I), transpose_kernel=True
+                                         -> ConvTranspose2d weight (I, O, kH, kW)
     norm scale / bias                    -> weight / bias
     GRU wi (in, 3H), wh (H, 3H), bi, bh  -> weight_ih_l0 (3H, in), weight_hh_l0, bias_*
 """
@@ -22,6 +24,8 @@ StateDict = Dict[str, torch.Tensor]
 
 #: prefixes under which reference and JAX-exported checkpoints keep the UNet
 REFERENCE_PREFIXES = ("model.ldm.eps_model.", "ldm.eps_model.", "eps_model.")
+#: the same for the plain DDPM family's UNet (JAX ``inference.py:722``)
+DDPM_PREFIXES = ("model.ddpm.eps_model.", "ddpm.eps_model.", "eps_model.")
 
 
 def _t(a) -> torch.Tensor:
@@ -35,8 +39,11 @@ def _linear(out: StateDict, tk: str, sub: Mapping) -> None:
 
 
 def _conv(out: StateDict, tk: str, sub: Mapping) -> None:
+    """A Conv2d; also a ConvTranspose2d, whose flax kernel (transpose_kernel=True)
+    is (kH, kW, O, I) against torch's (I, O, kH, kW): the same permutation."""
     out[tk + ".weight"] = _t(np.transpose(np.asarray(sub["kernel"]), (3, 2, 0, 1)))
-    out[tk + ".bias"] = _t(sub["bias"])
+    if "bias" in sub:
+        out[tk + ".bias"] = _t(sub["bias"])
 
 
 def _norm(out: StateDict, tk: str, sub: Mapping) -> None:
@@ -192,6 +199,134 @@ def polydis_state_from_jax(params: Mapping) -> StateDict:
     return {f"{name}.{k}": v for name, convert in parts for k, v in convert(params[name]).items()}
 
 
+def ddpm_unet_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``DDPMUNet`` params -> the port's ``DDPMUNet`` state dict, the
+    reference ``ddpm.unet.UNet`` names (inverse of JAX
+    ``convert/torch_import.py:ddpm_unet_params_from_torch``). Each attention
+    block's ``norm``, which JAX does not hold and no forward applies, gets
+    its initial ones and zeros, so the state dict loads strictly."""
+    out: StateDict = {}
+    _conv(out, "image_proj", params["image_proj"])
+    _linear(out, "time_emb.lin1", params["time_emb"]["lin1"])
+    _linear(out, "time_emb.lin2", params["time_emb"]["lin2"])
+
+    def res_block(tk, sub):
+        for n in ("norm1", "norm2"):
+            _norm(out, f"{tk}.{n}", sub[n])
+        for n in ("conv1", "conv2", "shortcut"):
+            if n in sub:
+                _conv(out, f"{tk}.{n}", sub[n])
+        _linear(out, tk + ".time_emb", sub["time_emb"])
+
+    def attn_block(tk, sub):
+        c = np.asarray(sub["projection"]["kernel"]).shape[0]
+        out[tk + ".norm.weight"], out[tk + ".norm.bias"] = torch.ones(c), torch.zeros(c)
+        _linear(out, tk + ".projection", sub["projection"])
+        _linear(out, tk + ".output", sub["output"])
+
+    for side in ("down", "up"):
+        k = 0
+        while True:
+            name = f"{side}_{k}"
+            if name + "_res" in params:
+                res_block(f"{side}.{k}.res", params[name + "_res"])
+                if name + "_attn" in params:
+                    attn_block(f"{side}.{k}.attn", params[name + "_attn"])
+            elif name + "_ds" in params or name + "_us" in params:
+                sub = params.get(name + "_ds") or params[name + "_us"]
+                _conv(out, f"{side}.{k}.conv", sub["conv"])
+            else:
+                break
+            k += 1
+    res_block("middle.res1", params["middle_res1"])
+    attn_block("middle.attn", params["middle_attn"])
+    res_block("middle.res2", params["middle_res2"])
+    _norm(out, "norm", params["norm"])
+    _conv(out, "final", params["final"])
+    return out
+
+
+def _ae_resblock(out: StateDict, tk: str, sub: Mapping) -> None:
+    _norm(out, tk + ".norm1", sub["norm1"])
+    _conv(out, tk + ".conv1", sub["conv1"])
+    _norm(out, tk + ".norm2", sub["norm2"])
+    _conv(out, tk + ".conv2", sub["conv2"])
+    if "nin_shortcut" in sub:
+        _conv(out, tk + ".nin_shortcut", sub["nin_shortcut"])
+
+
+def _ae_mid(out: StateDict, tk: str, params: Mapping) -> None:
+    _ae_resblock(out, tk + ".mid.block_1", params["mid_block_1"])
+    attn = params["mid_attn_1"]
+    _norm(out, tk + ".mid.attn_1.norm", attn["norm"])
+    for n in ("q", "k", "v", "proj_out"):
+        _conv(out, f"{tk}.mid.attn_1.{n}", attn[n])
+    _ae_resblock(out, tk + ".mid.block_2", params["mid_block_2"])
+
+
+def _ae_half(out: StateDict, tk: str, params: Mapping, side: str, sample: str) -> None:
+    """An ``Encoder`` (``side`` "down") or ``Decoder`` ("up"): its levels'
+    blocks and re-sampling convs, the mid blocks and the ends."""
+    _conv(out, tk + ".conv_in", params["conv_in"])
+    i = 0
+    while f"{side}_{i}_block_0" in params:
+        j = 0
+        while f"{side}_{i}_block_{j}" in params:
+            _ae_resblock(out, f"{tk}.{side}.{i}.block.{j}", params[f"{side}_{i}_block_{j}"])
+            j += 1
+        if f"{side}_{i}_{sample}" in params:
+            _conv(out, f"{tk}.{side}.{i}.{sample}.conv", params[f"{side}_{i}_{sample}"])
+        i += 1
+    _ae_mid(out, tk, params)
+    _norm(out, tk + ".norm_out", params["norm_out"])
+    _conv(out, tk + ".conv_out", params["conv_out"])
+
+
+def autoencoder_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``Autoencoder`` params -> the port's ``Autoencoder`` state dict, the
+    reference names (inverse of JAX ``convert/torch_import.py:
+    autoencoder_params_from_torch``)."""
+    out: StateDict = {}
+    _ae_half(out, "encoder", params["encoder"], "down", "downsample")
+    _ae_half(out, "decoder", params["decoder"], "up", "upsample")
+    _conv(out, "quant_conv", params["quant_conv"])
+    _conv(out, "post_quant_conv", params["post_quant_conv"])
+    return out
+
+
+def nlayer_discriminator_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``NLayerDiscriminator`` params (``conv_0`` .. ``conv_<n>``,
+    ``bn_1`` .. ``bn_<n>``, ``conv_out``) -> the port's, the reference's
+    ``main.<index>`` names: conv n at 3n - 1, its batch norm at 3n."""
+    out: StateDict = {}
+    _conv(out, "main.0", params["conv_0"])
+    n = 1
+    while f"conv_{n}" in params:
+        _conv(out, f"main.{3 * n - 1}", params[f"conv_{n}"])
+        _norm(out, f"main.{3 * n}", params[f"bn_{n}"])
+        n += 1
+    _conv(out, f"main.{3 * n - 1}", params["conv_out"])
+    return out
+
+
+def lpips_state_from_jax(params: Mapping) -> StateDict:
+    """JAX ``LPIPS`` params (``vgg.conv<idx>``, ``lin<k>`` of shape (1, 1, C,
+    1)) -> the port's ``LPIPS`` state dict (the reference's
+    ``net.slice<s>.<idx>``, ``lin<k>.model.1``)."""
+    from .models.lpips import SLICE_BOUNDS
+
+    out: StateDict = {}
+    for name, sub in params["vgg"].items():
+        idx = int(name[len("conv"):])
+        s = next(s for s in range(5) if SLICE_BOUNDS[s] <= idx < SLICE_BOUNDS[s + 1])
+        _conv(out, f"net.slice{s + 1}.{idx}", sub)
+    k = 0
+    while f"lin{k}" in params:
+        _conv(out, f"lin{k}.model.1", {"kernel": params[f"lin{k}"]})
+        k += 1
+    return out
+
+
 def _checkpoint_dict(path: str) -> StateDict:
     """A reference checkpoint's dict of tensors: a bare one, or the one under
     ``model`` (a learner ``.pt``) or ``state_dict`` (a Lightning ``.ckpt``)."""
@@ -210,13 +345,13 @@ def reference_state(path: str) -> StateDict:
             for k, v in _checkpoint_dict(path).items()}
 
 
-def reference_unet_state(path: str) -> StateDict:
+def reference_unet_state(path: str, prefixes=REFERENCE_PREFIXES) -> StateDict:
     """The UNet state dict of a reference-format checkpoint (legacy learner
     ``.pt`` with a ``model`` dict, Lightning ``.ckpt`` with a ``state_dict``,
-    or a bare state dict), the first of ``REFERENCE_PREFIXES`` that matches
-    stripped."""
+    or a bare state dict), the first of ``prefixes`` that matches stripped
+    (``DDPM_PREFIXES`` for the plain DDPM family's)."""
     obj = _checkpoint_dict(path)
-    for prefix in REFERENCE_PREFIXES:
+    for prefix in prefixes:
         hit = {k[len(prefix):]: v for k, v in obj.items() if k.startswith(prefix)}
         if hit:
             return hit

@@ -18,7 +18,9 @@ request's original roll; a distilled student's run directory
 (``polyffusion_tpu_torch.distill``) is sampled on its own tau grid. A MIDI file
 stands in for the song with ``--from_midi`` (its chords recognized,
 ``data/midi_to_data.py``), and ``--polydis_recon`` re-renders each generated
-piece through PolyDis. Runs on the GPU unless ``--device cpu`` is given.
+piece through PolyDis. A ``ddpm`` run directory or preset takes the plain DDPM
+family's route (``generate_ddpm``): unconditional DDPM-1000, or DDIM with
+``--ddim``. Runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from .config import Params, load_params
-from .convert import reference_unet_state
+from .convert import DDPM_PREFIXES, REFERENCE_PREFIXES, reference_unet_state
 from .data.dataset import SongNpz
 from .data.midi_to_data import song_from_midi
 from .device import DeviceLike, resolve_device
@@ -43,6 +45,7 @@ from .diffusion.schedule import make_ddim_schedule
 from .models.encoders import build_frozen_encoders
 from .models.polydis import PolydisAftertouch
 from .models.unet import GN_CONV_MODES
+from .tasks.ddpm import DDPMTask
 from .tasks.sdf import SDFTask, blurry_image
 from .utils.midi_io import prmat2c_to_midi_file
 from .utils.reprs import prmat2c_to_prmat
@@ -109,14 +112,15 @@ def half_segments(a: np.ndarray) -> np.ndarray:
 # -- checkpoints ------------------------------------------------------------------
 
 
-def load_unet_params(chkpt_path: str, use_ema: bool = False):
-    """The fp32 UNet state dict of a checkpoint, for ``SDFTask.load_unet_state``:
+def load_unet_params(chkpt_path: str, use_ema: bool = False, prefixes=REFERENCE_PREFIXES):
+    """The fp32 UNet state dict of a checkpoint, for ``SDFTask.load_unet_state``
+    (or ``DDPMTask``'s, with ``prefixes=DDPM_PREFIXES``):
 
     - a run directory of the port's trainer (``params.yaml``, ``chkpts/last.pt``):
       its ``params``, or with ``use_ema`` its EMA branch (raises when the run
       kept none);
     - a reference-format ``.pt`` / ``.ckpt`` (``convert.reference_unet_state``,
-      which strips the first task prefix that matches).
+      which strips the first of ``prefixes`` that matches).
 
     JAX orbax run directories are not read yet (ROADMAP.md item 15)."""
     if os.path.isdir(chkpt_path):
@@ -136,7 +140,7 @@ def load_unet_params(chkpt_path: str, use_ema: bool = False):
         raise ValueError(
             "--use_ema needs a run directory (reference checkpoints carry no EMA branch)"
         )
-    return reference_unet_state(chkpt_path)
+    return reference_unet_state(chkpt_path, prefixes)
 
 
 # -- the session --------------------------------------------------------------------
@@ -443,15 +447,59 @@ def song_conditions(task: SDFTask, song_data, length: int = 0, autoreg: bool = F
 
 def build_task_for_inference(cfg: Params, pretrained_dir: Optional[str] = None,
                              device: DeviceLike = None, gn_conv: str = "unfused") -> SDFTask:
-    """The task of ``cfg`` with its frozen encoders from ``pretrained_dir``;
-    its UNet weights come from ``load_unet_params``. ``gn_conv``: the UNet's
-    GroupNorm-SiLU-conv route ("unfused", "fused" or "int8")."""
+    """The ``sdf*`` task of ``cfg`` with its frozen encoders from
+    ``pretrained_dir``; its UNet weights come from ``load_unet_params``.
+    ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused" or
+    "int8"). A ``ddpm`` config has its own route, ``generate_ddpm``."""
     if cfg.get("model_name") == "ddpm":
-        raise NotImplementedError(
-            "model_name ddpm (the plain DDPM family) is not ported yet (ROADMAP.md item 10)"
-        )
+        raise ValueError("model_name ddpm is the plain DDPM family: sample it with "
+                         "generate_ddpm (the CLI takes that route by itself)")
     return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained_dir), device=device,
                    gn_conv=gn_conv)
+
+
+# the CLI's flags that the unconditional DDPM family does not take, with their defaults
+DDPM_UNUSED_FLAGS = {"uncond_scale": 1.0, "autoreg": False, "dpmpp": False,
+                     "inpaint_type": None, "from_midi": None, "from_midi2": None,
+                     "inpaint_from_midi": None, "inpaint_song_fn": None,
+                     "polydis_recon": False, "split_inpaint": False, "gn_conv": "unfused"}
+
+
+def generate_ddpm(cfg: Params, args) -> list:
+    """Unconditional generation with the plain DDPM family (JAX
+    ``inference.py:_main_ddpm`` :707-746): ``--num_generate`` batches of
+    ``max(--length, 1)`` images from N(0, I) (a generator on the device seeded
+    by ``--seed``), each sampled by DDPM over all of the schedule's steps, or
+    with ``--ddim`` by DDIM on ``--ddim_steps`` (default 50) of the tau grid,
+    and written to ``ddpm_<stamp>_<i>.mid``. Returns the images, (B, C, H, W)
+    each."""
+    given = [f"--{k}" for k, default in DDPM_UNUSED_FLAGS.items() if getattr(args, k) != default]
+    if given:
+        raise SystemExit(f"{', '.join(given)}: not taken by the unconditional ddpm family")
+    task = DDPMTask(cfg, device=args.device)
+    task.load_unet_state(load_unet_params(args.chkpt_path, use_ema=args.use_ema,
+                                          prefixes=DDPM_PREFIXES))
+    generator = torch.Generator(device=task.device).manual_seed(args.seed)
+    b = max(args.length, 1)
+    shape = (b, cfg.get("image_size_h", 128), cfg.get("image_size_w", 128),
+             cfg.get("image_channels", 2))
+    cond = torch.zeros((b, 1, 1), device=task.device)  # read by no layer, as JAX's
+    os.makedirs(args.output_dir, exist_ok=True)
+    outputs = []
+    for i in range(args.num_generate):
+        x_last = torch.randn(shape, generator=generator, device=task.device)
+        if args.ddim:
+            dd = make_ddim_schedule(task.schedule, args.ddim_steps or 50, args.ddim_discretize,
+                                    args.ddim_eta)
+            gen = S.ddim_sample(task.apply_eps, dd, x_last, cond, generator)
+        else:
+            gen = S.ddpm_sample(task.apply_eps, task.schedule, x_last, cond, generator)
+        out = gen.permute(0, 3, 1, 2).float().cpu().numpy()
+        stamp = datetime.now().strftime("%y-%m-%d_%H%M%S")
+        prmat2c_to_midi_file(out, os.path.join(args.output_dir, f"ddpm_{stamp}_{i}.mid"))
+        outputs.append(out)
+    print(f"wrote {args.num_generate} output(s) to {args.output_dir}")
+    return outputs
 
 
 def polydis_recon(aftertouch: PolydisAftertouch, gen: np.ndarray, chord: np.ndarray, fn: str,
@@ -537,6 +585,8 @@ def main(argv=None):
         cfg = load_params(run_params)
     else:
         cfg = load_params(args.model or "sdf_chd8bar")
+    if cfg.get("model_name") == "ddpm":
+        return generate_ddpm(cfg, args)
     task = build_task_for_inference(cfg, args.pretrained_dir, device=args.device,
                                     gn_conv=args.gn_conv)
     task.load_unet_state(load_unet_params(args.chkpt_path, use_ema=args.use_ema))

@@ -1,6 +1,7 @@
 """Training CLI (counterpart of ``polyffusion_tpu/main.py``, one GPU): the
-diffusion presets (``sdf*``) and the pretraining of their frozen encoders,
-the chord VAE (``chd_8bar``) and the PianoTree VAE (``pnotree_vae``):
+diffusion presets (``sdf*``), the pretraining of their frozen encoders, the
+chord VAE (``chd_8bar``) and the PianoTree VAE (``pnotree_vae``), the plain
+DDPM family (``ddpm``) and the KL autoencoder (``autoencoder``):
 
     python -m polyffusion_tpu_torch.main --model chd_8bar --output_dir result/chd \\
         --data_dir <npz dir>
@@ -28,13 +29,14 @@ from .config import load_params
 from .data import SegmentDataset, make_loaders
 from .device import DeviceLike
 from .models.encoders import build_frozen_encoders
-from .tasks import Chd8BarTask, PnoTreeVAETask, SDFTask
+from .tasks import AutoencoderTask, Chd8BarTask, DDPMTask, PnoTreeVAETask, SDFTask
 from .tasks.sdf import refuse_unported_trainer_keys
 from .train import Trainer
 from .train.schedulers import make_param_scheduler
 
-VAE_TASKS = {"chd_8bar": Chd8BarTask, "pnotree_vae": PnoTreeVAETask}
-NOT_PORTED = {"ddpm": 10, "autoencoder": 11}  # model_name -> its ROADMAP.md item
+# the tasks without the sdf UNet's GroupNorm-SiLU-conv route
+OTHER_TASKS = {"chd_8bar": Chd8BarTask, "pnotree_vae": PnoTreeVAETask, "ddpm": DDPMTask,
+               "autoencoder": AutoencoderTask}
 
 
 def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 0,
@@ -42,22 +44,22 @@ def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 
     """The task of ``cfg`` for training, weights fp32 from ``seed`` (JAX
     ``build_task`` :16-37): an ``sdf*`` preset's ``SDFTask`` with the frozen
     encoders from ``pretrained_dir`` and ``gn_conv`` "unfused" or "fused" (the
-    int8 route has no gradient); ``Chd8BarTask``; ``PnoTreeVAETask``."""
+    int8 route has no gradient); ``Chd8BarTask``; ``PnoTreeVAETask``;
+    ``DDPMTask``; ``AutoencoderTask``."""
     model_name = cfg["model_name"]
     refuse_unported_trainer_keys(cfg)
     generator = torch.Generator().manual_seed(seed)
     if model_name.startswith("sdf"):
         return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained_dir), device=device,
                        generator=generator, training=True, gn_conv=gn_conv)
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model_name {model_name} is not ported yet (ROADMAP.md item {NOT_PORTED[model_name]})")
-    if model_name not in VAE_TASKS:
+    if model_name not in OTHER_TASKS:
         raise NotImplementedError(model_name)
     if gn_conv != "unfused":
         raise ValueError(f"gn_conv={gn_conv!r}: the GroupNorm-SiLU-conv route is the sdf UNet's; "
                          f"{model_name} has none")
-    return VAE_TASKS[model_name](cfg, device=device, generator=generator)
+    if model_name == "ddpm":
+        return DDPMTask(cfg, device=device, generator=generator, training=True)
+    return OTHER_TASKS[model_name](cfg, device=device, generator=generator)
 
 
 def main(argv=None):

@@ -58,20 +58,21 @@ class GroupNorm32(nn.Module):
     affine is folded in fp32 and applied in the activation dtype, as the JAX
     package's ``FP32GroupNorm`` does (``nn.GroupNorm`` is two-pass and applies in
     fp32, so it would round differently in bf16). Its backward is the GroupNorm
-    backward kernel on a CUDA tensor (``ops/gn_bwd.py``)."""
+    backward kernel on a CUDA tensor (``ops/gn_bwd.py``). ``groups``: 32, the
+    reference's normalization(32), unless a model asks for another count (the
+    plain DDPM UNet's final norm has 8)."""
 
-    GROUPS = 32  # the reference's normalization(32)
-
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, groups: int = 32):
         super().__init__()
-        if channels % self.GROUPS:
-            raise ValueError(f"GroupNorm needs channels divisible by {self.GROUPS}, got {channels}")
+        if channels % groups:
+            raise ValueError(f"GroupNorm needs channels divisible by {groups}, got {channels}")
         self.eps = eps
+        self.groups = groups
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm_affine(x, self.weight, self.bias, self.GROUPS, self.eps)
+        return group_norm_affine(x, self.weight, self.bias, self.groups, self.eps)
 
 
 def _conv3x3(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
@@ -111,7 +112,7 @@ class ResBlock(nn.Module):
         x = x.contiguous()
         skip = skip.contiguous() if skip is not None else None
         norm = self.in_layers[0]
-        a, off = gn_affine(x, norm.weight, norm.bias, norm.GROUPS, norm.eps, skip)
+        a, off = gn_affine(x, norm.weight, norm.bias, norm.groups, norm.eps, skip)
         if skip is None:
             h = self._gn_conv(0, x, a, off)
         else:
@@ -119,7 +120,7 @@ class ResBlock(nn.Module):
             h = self._gn_conv(0, x, a[:, :c1], off[:, :c1], skip, a[:, c1:], off[:, c1:])
         h = h + self.emb_layers(t_emb).to(h.dtype)[:, :, None, None]
         norm = self.out_layers[0]
-        a, off = gn_affine(h, norm.weight, norm.bias, norm.GROUPS, norm.eps)
+        a, off = gn_affine(h, norm.weight, norm.bias, norm.groups, norm.eps)
         # the residual is added in fp32 inside the kernel, before its one cast
         return self._gn_conv(1, h, a, off, residual=self._residual(x, skip).contiguous())
 
@@ -373,13 +374,14 @@ class UNetModel(nn.Module):
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-draw every Linear, Conv2d and GRU parameter from ``generator`` with
-    the bounds of torch's default init (U(-1/sqrt(fan_in), 1/sqrt(fan_in)), and
+    """Re-draw every Linear, Conv2d, ConvTranspose2d and GRU parameter from
+    ``generator`` with the bounds of torch's default init (U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), fan_in the size of ``weight[0]``, and
     U(-1/sqrt(H), 1/sqrt(H)) for a GRU); norms keep scale 1 and bias 0. The
     module must lie on the generator's device."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
                 bound = 1.0 / math.sqrt(m.weight[0].numel())
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:

@@ -46,7 +46,13 @@ class Optimizer:
         self.adam = torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
     def step(self) -> torch.Tensor:
-        """Clip and update; returns the unclipped gradients' global norm."""
+        """Clip and update; returns the unclipped gradients' global norm. A
+        parameter that the loss never reached (the DDPM attention's unused
+        ``norm``, which JAX's tree does not hold) takes a zero gradient: Adam
+        then leaves it as it is."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         norm = clip_by_global_norm_([p.grad for p in self.params], self.max_grad_norm)
         self.adam.step()
         return norm

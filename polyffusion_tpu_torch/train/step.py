@@ -10,6 +10,7 @@ until the caller reads them.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -29,7 +30,9 @@ def make_train_step(task, ema_decay: Optional[float] = None):
     metrics``: one update of ``state`` in place. ``noise`` (the task's
     randomness, e.g. ``StepNoise``) replaces what the step would draw from
     ``step_generator(seed, state.step)``; ``sched`` (the step's scheduled
-    values, e.g. teacher-forcing rates) reaches the task's ``draw_noise``.
+    values, e.g. teacher-forcing rates) reaches the task's ``draw_noise``,
+    with the step's number as ``"global_step"`` (the autoencoder's
+    discriminator gate reads it).
 
     ``ema_decay``: when set (and ``state.ema`` is populated), the step also
     keeps an fp32 exponential moving average of the masters, taken after the
@@ -37,6 +40,8 @@ def make_train_step(task, ema_decay: Optional[float] = None):
 
     def step(state: TrainState, batch, seed: int, noise=None, sched=None) -> Dict[str, torch.Tensor]:
         if noise is None:
+            # the step's number reaches the task as JAX's sched_params["global_step"]
+            sched = {**(sched or {}), "global_step": state.step}
             noise = task.draw_noise(batch, step_generator(seed, state.step, task.device), sched)
         weights = state.weights
         weights.zero_grad()
@@ -64,9 +69,12 @@ def make_eval_step(task):
     ``sched``, without gradients."""
 
     def step(batch, sched=None) -> Dict[str, torch.Tensor]:
+        # JAX's eval step hands the loss no step, which the autoencoder reads
+        # as past its discriminator gate
+        sched = {**(sched or {}), "global_step": math.inf}
         with torch.no_grad():
             noise = task.draw_noise(batch, step_generator(0, 0, task.device), sched)
             _, metrics = task.loss_fn(batch, noise)
-        return dict(metrics)
+        return {k: v.detach() for k, v in metrics.items()}
 
     return step

@@ -24,9 +24,12 @@ NORM_TYPES = (GroupNorm32, nn.GroupNorm, nn.LayerNorm)
 
 def cast_sampling_params(module: nn.Module) -> nn.Module:
     """In place: every floating-point parameter to bf16, except those of norm
-    modules, which stay fp32."""
+    modules and of modules whose ``keep_fp32`` is true (the discriminator's
+    batch norms, the autoencoder's ``logvar``: parameters the JAX package uses
+    uncast), which stay fp32."""
     for mod in module.modules():
-        keep = torch.float32 if isinstance(mod, NORM_TYPES) else torch.bfloat16
+        fp32 = isinstance(mod, NORM_TYPES) or getattr(mod, "keep_fp32", False)
+        keep = torch.float32 if fp32 else torch.bfloat16
         for param in mod.parameters(recurse=False):
             if param.is_floating_point():
                 param.data = param.data.to(keep)
@@ -70,7 +73,7 @@ class MasterWeights:
     def grads_to_masters(self) -> None:
         if not self.shared:
             for m, p in zip(self.masters, self.working):
-                m.grad = p.grad.float()
+                m.grad = None if p.grad is None else p.grad.float()
 
     @torch.no_grad()
     def refresh(self) -> None:

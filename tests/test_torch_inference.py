@@ -260,7 +260,8 @@ def test_load_unet_params_refuses_other_directories(tmp_path):
     (tmp_path / "chkpts" / "100").mkdir(parents=True)  # an orbax step directory
     with pytest.raises(NotImplementedError, match="item 15"):
         load_unet_params(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a ddpm config takes the DDPM route (generate_ddpm), not the sdf task's
+    with pytest.raises(ValueError, match="generate_ddpm"):
         build_task_for_inference(Params(CFG, model_name="ddpm"), device="cpu")
 
 

@@ -392,6 +392,50 @@ def test_cuda_gn_bwd_cluster_shapes_match_plain(b, c, hh, ww, dtype, k):
         assert x_.dtype == torch.bfloat16 and torch.equal(x_, y.to(torch.bfloat16))
 
 
+# the plain DDPM and autoencoder train steps' shapes (fp32, batch 16) that no
+# other path gives kernel 6: (B, C, H, W, groups, CTAs a cluster)
+GN_FAMILY_SHAPES = [
+    (16, 64, 128, 128, 8, 8),  # the DDPM UNet's final norm: 8 groups, 128 KB a CTA
+    (16, 2048, 16, 16, 32, 2),  # its widest concat: 64 channels a group
+    (16, 1280, 16, 16, 32, 2),  # 40 a group
+    (16, 128, 128, 128, 32, 8),  # the up path's first concat, and the AE decoder's
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,hh,ww,groups,k", GN_FAMILY_SHAPES)
+def test_cuda_gn_bwd_family_shapes_match_plain(b, c, hh, ww, groups, k):
+    """Kernel 6 at 8 groups and at 64 channels a group, fp32, against
+    ``gn_bwd_reference``; then through ``GroupNorm32``'s autograd, as a train
+    step runs it, one launch a backward."""
+    from polyffusion_tpu_torch.models.unet import GroupNorm32
+
+    g = _card()
+    assert gn_bwd_plan(b, c, hh, ww, torch.float32, groups).cluster == k
+    x = torch.randn(b, c, hh, ww, device="cuda", generator=g) * 2 + 0.5
+    dy = torch.randn(b, c, hh, ww, device="cuda", generator=g)
+    gamma = torch.randn(c, device="cuda", generator=g) * 0.5 + 1.0
+    beta = torch.randn(c, device="cuda", generator=g) * 0.1
+    _, mean_c, inv_c = gn_primal(x, gamma, beta, groups, 1e-5)
+    before = group_norm_bwd.launches
+    got = group_norm_bwd(x, dy, mean_c, inv_c, gamma, groups)
+    torch.cuda.synchronize()
+    assert group_norm_bwd.launches == before + 1
+    want = gn_bwd_reference(x, dy, mean_c, inv_c, gamma, groups)
+    assert _within(got[0], want[0], *GN_LIMITS[torch.float32])
+    for x_, y in zip(got[1:], want[1:]):
+        assert _within(x_, y, *GN_PARAM_LIMIT)
+    gn = GroupNorm32(c, groups=groups).cuda()
+    with torch.no_grad():
+        gn.weight.copy_(gamma)
+        gn.bias.copy_(beta)
+    xl = x.clone().requires_grad_()
+    gn(xl).backward(dy)
+    assert group_norm_bwd.launches == before + 2
+    assert _within(xl.grad, want[0], *GN_LIMITS[torch.float32])
+    assert _within(gn.weight.grad, want[1], *GN_PARAM_LIMIT)
+
+
 @pytest.mark.cuda
 def test_cuda_gn_bwd_is_deterministic():
     """The in-kernel sum over B adds the items in a fixed order: two calls
