@@ -62,6 +62,20 @@ after:
   ``sdf_chd8bar`` and ``sdf_pnotree`` trained 4 steps each from them, and
   each task's ``encode_cond`` on the card against the trained encoder on the
   CPU;
+- serving and evaluation (``[serve]``, ``[expr]``), on those run
+  directories: the generation worker as ``python -m
+  polyffusion_tpu_torch.serve`` builds it (DDIM-50, batch 8, warmed at
+  scales 1 and 5, a 25 ms coalescing queue) behind its HTTP server on
+  127.0.0.1, answering a chord request, four concurrent requests in one
+  device pass, a long-form request of 3 windows and 2 pieces, a seeded
+  request twice (the same MIDI), a malformed one (400) and one more, each
+  with its kernel-1 launches counted (550 a pass) and its seconds and
+  device ms; then ``polyffusion_tpu_torch.expr.main`` at ``--ddim
+  --batch_size 16``: uncond, inp_below, inp_bars and chd on the training
+  run, chd_acc at scales 0 and 5 over 2 batches, fd and txt_acc on the
+  chord+txt run, pnt_acc on the PianoTree one (550 launches a batch and a
+  scale, tables finite); and the inference CLI with ``--dump_images`` (11
+  PNGs) and ``--bf16_params``;
 - distillation (``polyffusion_tpu_torch.distill``) of the training path's run
   directory, full width, bf16, batch 16: stage A and the halving phases 8 ->
   4 -> 2, then chain mode 2 -> 1 from its output (per step kernel 1 at the
@@ -362,6 +376,26 @@ GN_CONV_PATH = [
     (256, 128, 128, 64, False, 1), (128, 128, 128, 64, False, 1), (128, 64, 128, 64, False, 1),
     (128, 64, 64, 128, False, 1), (64, 64, 64, 128, False, 2),
 ]
+# [serve]: the worker as its CLI builds it on the training run directory, at
+# DDIM-50; [expr]: the evaluation harness on the run directories the earlier
+# phases wrote, each experiment 550 kernel-1 launches per batch per scale pass
+SERVE_BATCH, SERVE_SCALES, SERVE_COALESCE_MS = 8, "1,5", 25
+SERVE_CONCURRENT, SERVE_CONCURRENT_NUM = 4, 2  # four clients of 2 samples: one padded pass
+SERVE_LONG_LENGTH, SERVE_LONG_PIECES = 3, 2
+HTTP_TIMEOUT_S = 600  # every socket, join and wait of the [serve] phase
+EXPR_BATCH = 16
+# (experiment, run directory, its frozen encoders, extra flags, batches, scale passes)
+EXPR_RUNS = [
+    ("uncond", "run", "pretrained", [], 1, 1),
+    ("inp_below", "run", "pretrained", [], 1, 1),
+    ("inp_bars", "run", "pretrained", [], 1, 1),
+    ("chd", "run", "pretrained", [], 1, 1),
+    ("chd_acc", "run", "pretrained", ["--scales", "0,5"], 2, 2),
+    ("fd", "run_mix2", "pretrained", ["--scales", "0,5"], 1, 2),
+    ("txt_acc", "run_mix2", "pretrained", ["--scales", "0,5"], 1, 2),
+    ("pnt_acc", "run_sdf_pnotree_from_run", "pretrained_runs", ["--scales", "0,5"], 1, 2),
+]
+DUMP_IMAGES = 11  # q0.png and one every n_steps // 10 of the 1000 steps
 
 
 def log(msg: str) -> None:
@@ -450,6 +484,10 @@ def check_packed_attention():
         (32, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
         (2, 1024, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
         (2, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        # the generation worker's padded batch of 8 at scale 1 (its CFG double
+        # batch is the batch-16 row above)
+        (8, 1024, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
+        (8, 256, 4, 64, torch.bfloat16, BF16_ATOL, BF16_RTOL),
     ]
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -3621,6 +3659,246 @@ def drive_family_paths(counters, work):
     return paths
 
 
+def read_png(path):
+    """(H, W, channels) uint8 of a PNG with 8-bit samples, no interlace and
+    filter 0 on every row (what ``utils/image.py`` writes), each chunk's CRC
+    checked: the card's machine has no image package."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = head[:4]
+    channels = {2: 3, 6: 4}[color]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels)
+    if depth != 8 or rows[:, 0].any():
+        raise AssertionError(f"{path}: depth {depth} or a row filter this reader does not undo")
+    return rows[:, 1:].reshape(h, w, channels)
+
+
+class Client:
+    """``http.client`` calls to the worker, each with a timeout; any status
+    but the one expected fails the phase."""
+
+    def __init__(self, port):
+        self.port = port
+
+    def call(self, method, path, body=None, expect=200):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=HTTP_TIMEOUT_S)
+        try:
+            conn.request(method, path, body=None if body is None else json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            out = json.loads(resp.read())
+        finally:
+            conn.close()
+        if resp.status != expect:
+            raise AssertionError(f"{method} {path} {body if body is None else list(body)}: "
+                                 f"status {resp.status} (expected {expect}): {out}")
+        return out
+
+
+def drive_serve(counters, work):
+    """``[serve]``: the generation worker as ``python -m
+    polyffusion_tpu_torch.serve`` builds it (``serve.start``) on the training
+    path's run directory: DDIM-50, batch SERVE_BATCH, warmup at scales 1 and
+    5, a SERVE_COALESCE_MS queue; its ThreadingHTTPServer on 127.0.0.1:0 in a
+    thread. Each request with the launch counts set to 0 just before it and
+    read just after: a chord request of one sample, four concurrent unseeded
+    requests (one device pass), a long-form request of 3 windows and 2
+    pieces, a seeded request twice (the same MIDI), a malformed one (400),
+    then one more. Returns the launches summed over the requests, and each
+    request's seconds (host clock) and device ms."""
+    import base64
+    import threading
+
+    import torch
+
+    from polyffusion_tpu_torch import serve
+
+    args = serve.parse_args([
+        "--chkpt_path", os.path.join(work, "run"), "--pretrained_dir",
+        os.path.join(work, "pretrained"), "--ddim", "--batch_size", str(SERVE_BATCH),
+        "--warmup_scales", SERVE_SCALES, "--coalesce_ms", str(SERVE_COALESCE_MS), "--port", "0"])
+    t0 = time.perf_counter()
+    srv = serve.start(args)
+    thread = threading.Thread(target=srv.httpd.serve_forever, daemon=True)
+    thread.start()
+    client = Client(srv.httpd.server_address[1])
+    zero = {name: 0 for name in counters}
+    totals, timing = dict(zero), {}
+
+    def request(label, fn, passes, windows=1):
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        got = {name: c.launches for name, c in counters.items()}
+        want = dict(zero, packed_attention=LAUNCHES_PER_REQUEST * passes * windows)
+        replies = out if isinstance(out, list) else [out]
+        timing[label] = dict(secs=secs, device_ms=[r.get("device_ms") for r in replies])
+        log(f"[serve] {label}: {secs:.3f} s (host clock), device_ms "
+            f"{timing[label]['device_ms']}, launches {got}")
+        if got != want:
+            raise AssertionError(f"[serve] {label}: expected launches {want}, got {got}")
+        for name in totals:
+            totals[name] += got[name]
+        return out
+
+    try:
+        srv.warmup.join(HTTP_TIMEOUT_S)
+        if srv.warmup.is_alive() or srv.worker.warm_error is not None:
+            raise AssertionError(f"warmup did not finish: {srv.worker.warm_error}")
+        log(f"[serve] bound and warmed at scales {SERVE_SCALES} in {time.perf_counter() - t0:.3f}"
+            f" s (checkpoint load, kernel builds, cuDNN plans)")
+        health = client.call("GET", "/healthz")
+        if not (health["ok"] and health["warm"]):
+            raise AssertionError(f"/healthz {health}")
+        rng = np.random.default_rng(8)
+        chord = random_chords(rng, 1).tolist()
+        one = request("chord request, num 1",
+                      lambda: client.call("POST", "/generate", {"num": 1, "chord": chord}), 1)
+        gate = threading.Barrier(SERVE_CONCURRENT, timeout=HTTP_TIMEOUT_S)
+        group = [None] * SERVE_CONCURRENT
+
+        def concurrent(i):
+            gate.wait()
+            group[i] = client.call("POST", "/generate",
+                                   {"num": SERVE_CONCURRENT_NUM, "uncond_scale": 5.0})
+
+        def four():
+            threads = [threading.Thread(target=concurrent, args=(i,))
+                       for i in range(SERVE_CONCURRENT)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(HTTP_TIMEOUT_S)
+            if any(t.is_alive() for t in threads) or None in group:
+                raise AssertionError(f"a concurrent request failed or hung: {group}")
+            return group
+
+        request(f"{SERVE_CONCURRENT} concurrent requests, num {SERVE_CONCURRENT_NUM}, scale 5",
+                four, 1)
+        if any(r["batched_with"] != SERVE_CONCURRENT - 1 or r["num"] != SERVE_CONCURRENT_NUM
+               for r in group):
+            raise AssertionError(f"the concurrent requests were not served together: {group}")
+        long_form = request(
+            f"long form, length {SERVE_LONG_LENGTH}, {SERVE_LONG_PIECES} pieces",
+            lambda: client.call("POST", "/generate_long",
+                                {"length": SERVE_LONG_LENGTH, "num": SERVE_LONG_PIECES,
+                                 "uncond_scale": 5.0}), 1, windows=2 * SERVE_LONG_LENGTH - 1)
+        seeded = [request(f"seeded request {i}",
+                          lambda: client.call("POST", "/generate",
+                                              {"num": 2, "uncond_scale": 5.0, "seed": 1234}), 1)
+                  for i in (1, 2)]
+        if seeded[0]["midi_b64"] != seeded[1]["midi_b64"]:
+            raise AssertionError("the seeded request did not reproduce its MIDI")
+        request("malformed request (num 99)",
+                lambda: client.call("POST", "/generate", {"num": 99}, expect=400), 0)
+        request("the request after it", lambda: client.call("POST", "/generate", {"num": 1}), 1)
+        stats = client.call("GET", "/stats")
+        want = dict(requests=1 + SERVE_CONCURRENT + 1 + 2 + 1,
+                    samples=1 + SERVE_CONCURRENT * SERVE_CONCURRENT_NUM + SERVE_LONG_PIECES + 4 + 1,
+                    batch_size=SERVE_BATCH, coalesced_batches=1,
+                    warmed_scales=[float(s) for s in SERVE_SCALES.split(",")])
+        log(f"[serve] /stats {stats}")
+        if {k: stats[k] for k in want} != want:
+            raise AssertionError(f"/stats {stats}, expected {want}")
+        for reply in [one, *group, *long_form["pieces"], *seeded]:
+            midi = base64.b64decode(reply["midi_b64"])
+            if not (midi.startswith(b"MThd") and 0 <= reply["integrity_err"] <= 1):
+                raise AssertionError(f"bad reply {dict(reply, midi_b64='...')}")
+    finally:
+        srv.httpd.shutdown()
+        srv.httpd.server_close()
+        srv.queue.close(HTTP_TIMEOUT_S)
+        thread.join(HTTP_TIMEOUT_S)
+    if thread.is_alive() or srv.queue._thread.is_alive():
+        raise AssertionError("the server or its queue did not stop")
+    log(f"[serve] summary {json.dumps(timing)}")
+    return totals
+
+
+def drive_expr(counters, work):
+    """``[expr]``: ``polyffusion_tpu_torch.expr.main`` at ``--ddim
+    --batch_size 16`` on the run directories the earlier phases wrote
+    (EXPR_RUNS), each with the launch counts set to 0 just before and read
+    just after: 550 kernel-1 launches per batch per scale pass, its table
+    written and finite. Then the inference CLI once with ``--dump_images``
+    (DUMP_IMAGES non-empty 128 x 128 PNGs) and once with ``--bf16_params``.
+    Returns the launches by path and each run's seconds."""
+    from polyffusion_tpu_torch import expr
+    from polyffusion_tpu_torch.inference import main as infer_main
+
+    data = os.path.join(work, "songs")
+    zero = {name: 0 for name in counters}
+    launches, secs = {}, {}
+    for kind, run, pretrained, extra, batches, passes in EXPR_RUNS:
+        out_dir = os.path.join(work, f"expr_{kind}")
+        argv = ["--chkpt_path", os.path.join(work, run), "--data_dir", data, "--pretrained_dir",
+                os.path.join(work, pretrained), "--type", kind, "--ddim", "--batch_size",
+                str(EXPR_BATCH), "--batch_num", str(batches), "--output_dir", out_dir, *extra]
+        result, secs[kind], got, _ = run_with_counts(counters, expr.main, argv)
+        want = dict(zero, packed_attention=LAUNCHES_PER_REQUEST * batches * passes)
+        files = sorted(os.listdir(out_dir))
+        log(f"[expr] {kind} on {run} ({batches} batch(es) of {EXPR_BATCH}, {passes} scale "
+            f"pass(es)): {secs[kind]:.3f} s, launches {got}, wrote {files}")
+        if got != want:
+            raise AssertionError(f"[expr] {kind}: expected launches {want}, got {got}")
+        if isinstance(result, dict):  # a sweep: its table, <kind>.json
+            with open(os.path.join(out_dir, f"{kind}.json")) as f:
+                table = json.load(f)
+            rows = table["scales" if "scales" in table else "table"]
+            values = [v for row in rows.values() for v in row.values()]
+            log(f"[expr] {kind} table {json.dumps(table)}")
+            if table["n_samples"] != EXPR_BATCH * batches or not np.isfinite(values).all():
+                raise AssertionError(f"[expr] {kind}: bad table {table}")
+        elif result.shape[0] != EXPR_BATCH * batches or not np.isfinite(result).all():
+            raise AssertionError(f"[expr] {kind}: bad output {result.shape}")
+        if not any(f.endswith((".json", ".mid")) for f in files):
+            raise AssertionError(f"[expr] {kind} wrote nothing")
+        launches[f"expr_{kind}"] = got
+
+    base = ["--chkpt_path", os.path.join(work, "run"), "--data_dir", data, "--song_fn", CLI_SONG,
+            "--pretrained_dir", os.path.join(work, "pretrained"), "--ddim", "--length", "1"]
+    for flag in ("--dump_images", "--bf16_params"):
+        out_dir = os.path.join(work, f"cli_{flag[2:]}")
+        (gen,), secs[flag], got, _ = run_with_counts(counters, infer_main,
+                                                      base + [flag, "--output_dir", out_dir])
+        log(f"[expr] inference CLI {flag} --ddim --length 1: {secs[flag]:.3f} s, launches {got}")
+        if got != dict(zero, packed_attention=LAUNCHES_PER_REQUEST):
+            raise AssertionError(f"{flag}: expected {LAUNCHES_PER_REQUEST} kernel-1 launches")
+        if gen.shape != (1, 2, 128, 128) or not np.isfinite(gen).all():
+            raise AssertionError(f"{flag}: bad output {gen.shape}")
+        launches[f"cli_{flag[2:]}"] = got
+    img_dir = os.path.join(work, "cli_dump_images", "img")
+    pngs = sorted(os.listdir(img_dir))
+    shapes = {p: read_png(os.path.join(img_dir, p)).shape for p in pngs}
+    log(f"[expr] --dump_images wrote {len(pngs)} PNGs: {shapes}")
+    if len(pngs) != DUMP_IMAGES or set(shapes.values()) != {(128, 128, 4)}:
+        raise AssertionError(f"--dump_images: expected {DUMP_IMAGES} 128 x 128 PNGs, got {shapes}")
+    log(f"[expr] summary {json.dumps(secs)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3727,6 +4005,13 @@ def main() -> int:
             row["cli_host_ms_per_step"] = vae_host_ms[name]
         from_runs = drive_sdf_from_runs(counters, work)
         log(f"[pretrain] summary {json.dumps(vae_profiles)}")
+        # the generation worker and the evaluation harness on those run directories
+        t0 = time.perf_counter()
+        serving = {"serve": drive_serve(counters, work)}
+        log(f"[serve] phase {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        serving.update(drive_expr(counters, work))
+        log(f"[expr] phase {time.perf_counter() - t0:.3f} s")
         # the distillation of the training path's run directory, its students'
         # requests, then the blurry-image condition end to end
         distill, distill_ms = drive_distill_cli(counters, work)
@@ -3765,6 +4050,9 @@ def main() -> int:
             "shapes": rows,
         }
 
+    def serving_launches(name):  # the [serve] and [expr] paths
+        return {path: n[name] for path, n in serving.items()}
+
     fwd_bf16 = [r for r in rows if r["shape"].endswith("bfloat16")]
     bf16 = [r for r in bwd_rows if r["shape"].endswith("bfloat16")]
     hm_bf16 = [r for r in hm_rows if r["shape"].endswith("bfloat16")]
@@ -3783,7 +4071,8 @@ def main() -> int:
                   for name, n in from_runs.items()},
                **{f"distill_{name}": n["packed_attention"] for name, n in distill.items()},
                **{f"sampling_{name}": n["packed_attention"] for name, n in students.items()},
-               **{f"concat_{name}": n["packed_attention"] for name, n in concat.items()}},
+               **{f"concat_{name}": n["packed_attention"] for name, n in concat.items()},
+               **serving_launches("packed_attention")},
               rows, rows[0], fwd_bf16),
         # B=16 T=1024 bf16: the train step's dominant shape
         entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
@@ -3794,12 +4083,13 @@ def main() -> int:
                   for name, n in from_runs.items()},
                "distill_cli": distill["cli"]["packed_attention_bwd"],
                "distill_cli_chain": distill["cli_chain"]["packed_attention_bwd"],
-               "concat_training": concat["training"]["packed_attention_bwd"]},
+               "concat_training": concat["training"]["packed_attention_bwd"],
+               **serving_launches("packed_attention_bwd")},
               bwd_rows, bf16[0], bf16),
         # BH=512 T=1024 D=64 bf16: a batch-128 level-2 self-attention in head-major
         # form; on no model path, driven directly
         entry("head_major_attention", "polyffusion_tpu_torch/ops/csrc/packed_attention.cu",
-              "polyffusion_tpu/ops/fused_attention.py:29", {"direct": head_major}, hm_rows,
+              "polyffusion_tpu/ops/fused_attention.py:29", {"direct": head_major, **serving_launches("head_major_attention")}, hm_rows,
               [r for r in hm_bf16 if r["shape"].startswith("BH=512 T=1024")][0], hm_bf16),
         # B=16 C=64 128x128 bf16: the largest GroupNorm of the train step
         entry("gn_bwd", "polyffusion_tpu_torch/ops/csrc/gn_bwd.cu",
@@ -3808,24 +4098,28 @@ def main() -> int:
                **{f"training_{name}_from_run": n["gn_bwd"] for name, n in from_runs.items()},
                "distill_cli": distill["cli"]["gn_bwd"],
                "distill_cli_chain": distill["cli_chain"]["gn_bwd"],
-               "concat_training": concat["training"]["gn_bwd"], **family},
+               "concat_training": concat["training"]["gn_bwd"], **family,
+               **serving_launches("gn_bwd")},
               gn_rows, gn_rows[0], gn_rows),
         # B=2 2x128x128 fp32: request A's sampler batch
         entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",
               "polyffusion_tpu/ops/pallas_sampler.py:33",
               {"inpainting": cli["inpainting"]["repaint_epilogue"],
-               "concat_cli_ddpm": concat["cli_ddpm"]["repaint_epilogue"]}, epi_rows, epi_rows[0],
+               "concat_cli_ddpm": concat["cli_ddpm"]["repaint_epilogue"],
+               **serving_launches("repaint_epilogue")}, epi_rows, epi_rows[0],
               epi_rows),
         # B=128 C=64->64 128x128 bf16 with the residual: the costliest site shape
         entry("gn_silu_conv", "polyffusion_tpu_torch/ops/csrc/gn_silu_conv.cu",
               "polyffusion_tpu/ops/fused_gn_conv.py:36",
               {"sampling_fused": gn_conv_paths["fused"]["gn_silu_conv"],
-               "training_fused": fused_training["gn_silu_conv"]}, gnc_rows, gnc_rows[1],
+               "training_fused": fused_training["gn_silu_conv"],
+               **serving_launches("gn_silu_conv")}, gnc_rows, gnc_rows[1],
               [r for r in gnc_rows if "bfloat16" in r["shape"]]),
         entry("gn_silu_conv_q", "polyffusion_tpu_torch/ops/csrc/gn_silu_conv.cu",
               "polyffusion_tpu/ops/fused_gn_conv.py:36",
               {"sampling_int8": gn_conv_paths["int8"]["gn_silu_conv_q"],
-               "cli_int8": cli["int8"]["gn_silu_conv_q"]}, gnq_rows, gnq_rows[1],
+               "cli_int8": cli["int8"]["gn_silu_conv_q"],
+               **serving_launches("gn_silu_conv_q")}, gnq_rows, gnq_rows[1],
               [r for r in gnq_rows if "bfloat16" in r["shape"]]),
     ]
     # kernel 5's amax pass runs once before each of its convolutions

@@ -1,5 +1,5 @@
-"""Rule-based chord recognition + chord label codec (a copy of the JAX
-package's ``chord/``; its ``labels.py`` and ``eval.py`` are not ported yet)."""
+"""Rule-based chord recognition, the chord label codec, and the mir_eval chord
+scoring surface (a copy of the JAX package's ``chord/``)."""
 
 from .encode import encode, encode_to_absolute_row, split  # noqa: F401
 from .recognizer import (  # noqa: F401

@@ -18,7 +18,8 @@ request's original roll; a distilled student's run directory
 (``polyffusion_tpu_torch.distill``) is sampled on its own tau grid. A MIDI file
 stands in for the song with ``--from_midi`` (its chords recognized,
 ``data/midi_to_data.py``), and ``--polydis_recon`` re-renders each generated
-piece through PolyDis. A ``ddpm`` run directory or preset takes the plain DDPM
+piece through PolyDis; ``--dump_images`` writes PNGs of the song's forward
+noising and ``--bf16_params`` samples with bf16 weights. A ``ddpm`` run directory or preset takes the plain DDPM
 family's route (``generate_ddpm``): unconditional DDPM-1000, or DDIM with
 ``--ddim``. Runs on the GPU unless ``--device cpu`` is given.
 """
@@ -47,6 +48,7 @@ from .models.polydis import PolydisAftertouch
 from .models.unet import GN_CONV_MODES
 from .tasks.ddpm import DDPMTask
 from .tasks.sdf import SDFTask, blurry_image
+from .utils.image import show_image
 from .utils.midi_io import prmat2c_to_midi_file
 from .utils.reprs import prmat2c_to_prmat
 
@@ -446,23 +448,27 @@ def song_conditions(task: SDFTask, song_data, length: int = 0, autoreg: bool = F
 
 
 def build_task_for_inference(cfg: Params, pretrained_dir: Optional[str] = None,
-                             device: DeviceLike = None, gn_conv: str = "unfused") -> SDFTask:
+                             device: DeviceLike = None, gn_conv: str = "unfused",
+                             bf16_params: bool = False) -> SDFTask:
     """The ``sdf*`` task of ``cfg`` with its frozen encoders from
     ``pretrained_dir``; its UNet weights come from ``load_unet_params``.
     ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused" or
-    "int8"). A ``ddpm`` config has its own route, ``generate_ddpm``."""
+    "int8"). ``bf16_params``: the UNet's weights cast to bf16 for sampling
+    (``utils/precision.py:cast_sampling_params``) even for an fp32 preset.
+    A ``ddpm`` config has its own route, ``generate_ddpm``."""
     if cfg.get("model_name") == "ddpm":
         raise ValueError("model_name ddpm is the plain DDPM family: sample it with "
                          "generate_ddpm (the CLI takes that route by itself)")
     return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained_dir), device=device,
-                   gn_conv=gn_conv)
+                   gn_conv=gn_conv, bf16_params=bf16_params)
 
 
 # the CLI's flags that the unconditional DDPM family does not take, with their defaults
 DDPM_UNUSED_FLAGS = {"uncond_scale": 1.0, "autoreg": False, "dpmpp": False,
                      "inpaint_type": None, "from_midi": None, "from_midi2": None,
                      "inpaint_from_midi": None, "inpaint_song_fn": None,
-                     "polydis_recon": False, "split_inpaint": False, "gn_conv": "unfused"}
+                     "polydis_recon": False, "split_inpaint": False, "gn_conv": "unfused",
+                     "bf16_params": False, "dump_images": False}
 
 
 def generate_ddpm(cfg: Params, args) -> list:
@@ -500,6 +506,26 @@ def generate_ddpm(cfg: Params, args) -> list:
         outputs.append(out)
     print(f"wrote {args.num_generate} output(s) to {args.output_dir}")
     return outputs
+
+
+def dump_q_images(schedule, prmat2c: np.ndarray, img_dir: str, seed: int) -> list:
+    """The forward-noising sequence of the first segment as PNGs (JAX
+    ``inference.py:919-941``, reference ``Experiments.show_q_imgs``):
+    ``q0.png``, the segment itself, then ``q{step + 1}.png``, q_sample at every
+    ``n_steps // 10``-th step, each with fresh noise from a CPU generator
+    seeded by ``seed``. Returns the paths written."""
+    os.makedirs(img_dir, exist_ok=True)
+    first = np.asarray(prmat2c[:1], np.float32)
+    paths = [os.path.join(img_dir, "q0.png")]
+    show_image(first, paths[0])
+    src = torch.from_numpy(first).permute(0, 2, 3, 1)
+    generator = torch.Generator().manual_seed(seed)
+    for step in range(0, schedule.n_steps, max(schedule.n_steps // 10, 1)):
+        noised = q_sample_step(schedule, src, step,
+                               torch.randn(src.shape, generator=generator))
+        paths.append(os.path.join(img_dir, f"q{step + 1}.png"))
+        show_image(noised.permute(0, 3, 1, 2).numpy(), paths[-1])
+    return paths
 
 
 def polydis_recon(aftertouch: PolydisAftertouch, gen: np.ndarray, chord: np.ndarray, fn: str,
@@ -578,6 +604,12 @@ def main(argv=None):
     p.add_argument("--gn_conv", default="unfused", choices=list(GN_CONV_MODES),
                    help="the UNet's GroupNorm-SiLU-conv3x3 sites: as three modules, through "
                    "the fused kernel, or through its int8 form")
+    p.add_argument("--bf16_params", action="store_true",
+                   help="cast the UNet's weights to bf16 for sampling (norms stay fp32), also "
+                   "for an fp32 preset")
+    p.add_argument("--dump_images", action="store_true",
+                   help="write PNGs of the song's first segment and of its forward noising "
+                   "(q0.png, then q<step+1>.png every n_steps // 10 steps) into <output_dir>/img")
     args = p.parse_args(argv)
 
     run_params = os.path.join(args.chkpt_path, "params.yaml")
@@ -588,7 +620,7 @@ def main(argv=None):
     if cfg.get("model_name") == "ddpm":
         return generate_ddpm(cfg, args)
     task = build_task_for_inference(cfg, args.pretrained_dir, device=args.device,
-                                    gn_conv=args.gn_conv)
+                                    gn_conv=args.gn_conv, bf16_params=args.bf16_params)
     task.load_unet_state(load_unet_params(args.chkpt_path, use_ema=args.use_ema))
     session = InferenceSession(
         task,
@@ -652,6 +684,9 @@ def main(argv=None):
         prmat2c_to_midi_file(prmat2c, out, inp_mask=mask)
         print(f"split written to {out}")
         return None
+
+    if args.dump_images:
+        dump_q_images(session.schedule, prmat2c, os.path.join(args.output_dir, "img"), args.seed)
 
     aftertouch = (PolydisAftertouch(model_path=args.polydis_path, device=args.device)
                   if args.polydis_recon else None)

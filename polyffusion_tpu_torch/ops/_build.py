@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<name>-<hash>.so``, where the hash
 is that of the source and of the headers in ``csrc/``: a library is never
 loaded for a source it was not built from. Nothing here runs at import time,
-so the package imports on machines without ``nvcc`` or a GPU.
+so the package imports on machines without ``nvcc`` or a GPU. Building and
+loading hold one lock, so threads that reach a kernel first together (a
+server's warmup and its request handlers) build it once.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -26,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -51,37 +55,39 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile the named sources that have no library yet, one ``nvcc`` per
     source, all started together. Returns the compiler's output per source
     (``-Xptxas -v`` register and shared-memory use); raises if one fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in names:
-        lib = _lib_path(name)
-        if os.path.exists(lib):
-            continue
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs[name] = (
-            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp,
-            lib,
-        )
-    logs = {}
-    for name, (proc, tmp, lib) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-        os.replace(tmp, lib)
-    return logs
+    with _LOCK:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name in names:
+            lib = _lib_path(name)
+            if os.path.exists(lib):
+                continue
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+            procs[name] = (
+                subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp,
+                lib,
+            )
+        logs = {}
+        for name, (proc, tmp, lib) in procs.items():
+            out, _ = proc.communicate()
+            logs[name] = out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, lib)
+        return logs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    if name not in _LIBS:
-        lib = _lib_path(name)
-        if not os.path.exists(lib):
-            build([name])
-        _LIBS[name] = ctypes.CDLL(lib)
-    return _LIBS[name]
+    with _LOCK:
+        if name not in _LIBS:
+            lib = _lib_path(name)
+            if not os.path.exists(lib):
+                build([name])
+            _LIBS[name] = ctypes.CDLL(lib)
+        return _LIBS[name]
 
 
 def build_all() -> Dict[str, str]:

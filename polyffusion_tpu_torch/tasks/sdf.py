@@ -81,6 +81,7 @@ class SDFTask:
         generator: Optional[torch.Generator] = None,
         training: bool = False,
         gn_conv: str = "unfused",
+        bf16_params: bool = False,
     ):
         """``generator``: a CPU generator from which the UNet's weights are
         drawn; without it they keep torch's default init. The encoders
@@ -92,7 +93,9 @@ class SDFTask:
         ``training``: then they stay fp32, the trainer's master weights.
         ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused",
         or for sampling "int8", whose int8 weights are made whenever the
-        weights are placed)."""
+        weights are placed). ``bf16_params``: cast for sampling whatever the
+        preset's ``bf16`` says (JAX ``InferenceSession(bf16_params=True)``;
+        the port's modules then compute in bf16)."""
         self.device = resolve_device(device)
         self.training = training
         self.cfg = cfg
@@ -106,7 +109,9 @@ class SDFTask:
         # and distilled_scale
         self.v_prediction = bool(cfg.get("v_prediction", False))
         self.cond_mode = cfg.get("cond_mode", "cond")
-        self.bf16 = bool(cfg.get("bf16", False))
+        if training and bf16_params:
+            raise ValueError("bf16_params is sampling-only: training keeps fp32 master weights")
+        self.bf16 = bool(cfg.get("bf16", False)) or bf16_params
         self.use_enc = bool(cfg.get("use_enc", self.cond_type == "pnotree"))
         needed = {
             "chord_enc": "chord" in self.cond_type and self.use_enc,

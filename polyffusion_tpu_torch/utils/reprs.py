@@ -86,6 +86,16 @@ def nmat_to_prmat(nmat, n_step: int = 32) -> np.ndarray:
     return pr
 
 
+def nmat_to_rhy_array(nmat, n_step: int = 32) -> np.ndarray:
+    """Onset indicator track from a (melody) note matrix (reference ``utils.py:303-308``)."""
+    rhy = np.zeros(n_step, dtype=np.int64)
+    nm = _as_nmat(nmat)
+    if nm.shape[0]:
+        o = nm[:, 0]
+        rhy[o[(o >= 0) & (o < n_step)]] = 1
+    return rhy
+
+
 PITCH_SOS = 128
 PITCH_EOS = 129
 PITCH_PAD = 130
@@ -187,6 +197,52 @@ def prmat2c_to_nmat(prmat2c_single: np.ndarray) -> np.ndarray:
     return np.stack([t, p, d], axis=1).astype(np.int64)
 
 
+# quality metrics
+
+
+def check_prmat2c_integrity(prmat2c: np.ndarray, is_custom_round: bool = False) -> float:
+    """Fraction of sustain-without-onset pixels (reference ``utils.py:402-430``).
+
+    An error pixel is a sustain at (t, p) with neither an onset nor a sustain at
+    (t-1, p) (or t == 0).  Denominator = error pixels + valid onset pixels.
+    """
+    prmat2c = np.asarray(prmat2c)
+    err = 0
+    total = 0
+    for bars in prmat2c:
+        onset = _round_arr(bars[0], is_custom_round)
+        sustain = _round_arr(bars[1], is_custom_round)
+        prev_any = np.vstack(
+            [np.zeros((1, onset.shape[1]), dtype=np.int64), (onset[:-1] | sustain[:-1])]
+        )
+        e = int(np.count_nonzero((sustain > 0) & (prev_any == 0)))
+        err += e
+        total += e + int(np.count_nonzero(onset > 0))
+    return float(err / total) if total else 0.0
+
+
+def compute_prmat2c_density(prmat2c_single: np.ndarray) -> int:
+    """Coarse 4-way note-density class from the onset channel (reference ``utils.py:272-286``)."""
+    onset = np.rint(np.asarray(prmat2c_single)[0]).astype(np.int8)
+    ratio = np.count_nonzero(onset) / onset.size
+    if ratio < 0.004:
+        return 0
+    if ratio < 0.008:
+        return 1
+    if ratio < 0.012:
+        return 2
+    return 3
+
+
+def normalize_prmat(prmat: np.ndarray) -> np.ndarray:
+    """Duration-roll -> float in [0, 1] by dividing by n_step (reference ``utils.py:289-293``)."""
+    return prmat.astype(np.float32) / prmat.shape[1]
+
+
+def denormalize_prmat(prmat_norm: np.ndarray) -> np.ndarray:
+    return np.rint(prmat_norm * prmat_norm.shape[1]).astype(np.int64)
+
+
 # pitch-shift augmentation (reference utils.py:174-209)
 
 
@@ -217,3 +273,13 @@ def chd_to_onehot(chd: np.ndarray) -> np.ndarray:
     onehot[:, 12:24] = chd[:, 1:13]
     onehot[np.arange(n_step), 24 + chd[:, -1].astype(np.int64)] = 1
     return onehot
+
+
+def onehot_to_chd(onehot: np.ndarray) -> np.ndarray:
+    """(n_beat, 36) one-hot -> (n_beat, 14) chord matrix, the inverse of ``chd_to_onehot``."""
+    n_step = onehot.shape[0]
+    chd = np.zeros((n_step, 14), dtype=np.float32)
+    chd[:, 0] = np.argmax(onehot[:, 0:12], axis=1)
+    chd[:, 1:13] = onehot[:, 12:24]
+    chd[:, 13] = np.argmax(onehot[:, 24:36], axis=1)
+    return chd
