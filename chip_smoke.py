@@ -104,6 +104,20 @@ after:
   widths card vs CPU (encoder, a teacher-forced loss and its gradients, its
   logits, the greedy grid by its share of equal cells; planted fault: the
   z_chd | z_rhy halves swapped);
+- the trainer's and converter's leftovers and the tools (``[maintenance]``,
+  after the inference CLI): synthetic songs from ``python -m
+  polyffusion_tpu_torch.tools synth_corpus``, the training CLI on them (full
+  width, bf16, batch 16) with ``remat`` (kernel 1 twice per attention site a
+  step: 22, 11 kernel-2, 56 kernel-6), the legacy ``weights.pt`` mirror and a
+  ``--profile_steps`` window whose Chrome trace must name kernels 1, 2 and 6 at
+  2 x (22, 11, 56) launches; a remat step against a plain one on the card
+  (planted fault: the bf16 working copy changed before the backward), fused
+  plain and remat steps (44 and 88 kernel-4 launches), both steps timed with
+  their peak memory and idle share; ``python -m polyffusion_tpu_torch.convert``
+  (``--kind unet --reverse`` of the run directory, ``--kind unet`` of
+  ``weights.pt``), one seeded DDIM-50 request each from the run directory, the
+  reversed ``.pt`` and ``weights.pt`` (550 kernel-1 launches each, the same
+  bytes); ``pop909_import``, ``remove_from_split`` and ``cleanup_checkpoints``;
 - the plain DDPM family and the KL autoencoder (``[ddpm]``,
   ``[autoencoder]``, last), fp32 at the presets' widths: the DDPM UNet eval
   and one DDPM train step card vs CPU (fault: the final norm at 32 groups),
@@ -396,6 +410,34 @@ EXPR_RUNS = [
     ("pnt_acc", "run_sdf_pnotree_from_run", "pretrained_runs", ["--scales", "0,5"], 1, 2),
 ]
 DUMP_IMAGES = 11  # q0.png and one every n_steps // 10 of the 1000 steps
+# [maintenance]: the trainer's and converter's leftovers and the tools, on the
+# full-width sdf_chd8bar in bf16 at its batch 16 with the training path's
+# chd8bar.pt. MAINT_SONGS synthetic songs of MAINT_BARS bars written by
+# ``python -m polyffusion_tpu_torch.tools synth_corpus`` (25 segments each, one
+# song held out for validation); the training CLI with remat and the legacy
+# mirror for MAINT_STEPS steps, one validation and one save, profiled over
+# steps MAINT_PROFILE[0] to MAINT_PROFILE[1] - 1 (log_every 1: each step's
+# metrics are read, so no step's kernels run into the next). Per remat step
+# kernel 1 runs twice at each attention site (the forward, then the recompute
+# in the backward), kernel 2 once, kernel 6 at every GroupNorm backward; with
+# the GroupNorm-SiLU-conv sites fused, kernel 4 twice at each site and kernel
+# 6 at the 12 GroupNorms outside them. A remat step against a plain one on the
+# card, same batch and noise: the step's limits (STEP_LOSS_RTOL, STEP_GRAD_RTOL
+# per tensor); planted fault: the bf16 working copy scaled by 1 + 2^-6 between
+# the forward and the backward, so the recompute reads other weights. Warm
+# steps of each timed in turns (MAINT_TIMED: warm-up, timed per round, rounds,
+# profiled), with their peak device memory.
+MAINT_SONGS, MAINT_BARS, MAINT_STEPS, MAINT_PROFILE = 10, 32, 6, (2, 4)
+MAINT_SONG = "synth_000.npz"
+REMAT_FWD = 2 * ATTENTION_SITES
+MAINT_TIMED = (2, 5, 2, 2)
+REMAT_FAULT_SCALE = 1 + 2**-6
+# kernel names in a profiler trace, by kernel: (fragment, device kernels a launch)
+# the device kernels of a launch in a profiler trace, by name fragment: kernel
+# 2's bf16 launch runs a query-major and a key-major kernel
+TRACE_KERNELS = {"packed_attention": ("attention_fwd",),
+                 "packed_attention_bwd": ("attention_bwd_dq", "attention_bwd_dkdv"),
+                 "gn_bwd": ("gn_bwd",)}
 
 
 def log(msg: str) -> None:
@@ -3899,6 +3941,407 @@ def drive_expr(counters, work):
     return launches
 
 
+def maintenance_batch(rng, b):
+    """A bf16 train batch as the feeder sends it (a uint8 roll, chords), on the card."""
+    import torch
+
+    x0 = torch.from_numpy((rng.random((b, 2, 128, 128)) > 0.97).astype(np.uint8)).cuda()
+    return (x0, None, torch.from_numpy(random_chords(rng, b)).cuda(), None)
+
+
+def check_remat_step(counters):
+    """One full-width bf16 train step at batch 16 with ``remat`` against one
+    without, on the card: the same task, weights, batch and noise (the
+    task's ``cfg["remat"]`` switched between them); the loss within
+    STEP_LOSS_RTOL and every gradient within STEP_GRAD_RTOL in relative norm.
+    Kernel launches: 22 / 11 / 56 of kernels 1 / 2 / 6 with remat, 11 / 11 /
+    56 without. A second plain step gives the card's own repeatability. The
+    planted fault changes the bf16 working copy between the forward and the
+    backward (scaled by REMAT_FAULT_SCALE): the recompute reads other
+    weights, and the gradients must miss the limit. Returns the launches of
+    the remat step."""
+    import torch
+
+    from polyffusion_tpu_torch.train import create_state
+
+    cfg = full_cfg(bf16=True)
+    task = make_task(cfg, "cuda", seed=7, training=True)
+    state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm, bf16=True)
+    batch = maintenance_batch(np.random.default_rng(7), cfg.batch_size)
+    noise = task.draw_noise(batch, torch.Generator(device="cuda").manual_seed(7))
+
+    def grads(remat, fault=False):
+        task.cfg["remat"] = remat
+        state.weights.zero_grad()
+        zero_counts(counters)
+        loss, _ = task.loss_fn(batch, noise)
+        if fault:
+            with torch.no_grad():
+                torch._foreach_mul_(state.weights.working, REMAT_FAULT_SCALE)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        g = {n: p.grad.float() for n, p in task.unet.named_parameters()}
+        if fault:
+            state.weights.refresh()  # the working copy from the masters again
+        return loss.item(), g, got
+
+    def worst(got, want):
+        ratios = {k: ((got[k] - w).norm() / (STEP_GRAD_RTOL * w.norm() + 1e-9)).item()
+                  for k, w in want.items()}
+        k = max(ratios, key=ratios.get)
+        return ratios[k], k
+
+    loss, g, plain_got = grads(False)
+    loss_again, g_again, _ = grads(False)
+    r_loss, r_g, remat_got = grads(True)
+    _, g_fault, _ = grads(True, fault=True)
+    zero = {name: 0 for name in counters}
+    want_plain = dict(zero, packed_attention=ATTENTION_SITES,
+                      packed_attention_bwd=ATTENTION_SITES, gn_bwd=GROUPNORM_SITES)
+    want_remat = dict(want_plain, packed_attention=REMAT_FWD)
+    loss_err = abs(r_loss - loss) / abs(loss)
+    ratio, name = worst(r_g, g)
+    floor, floor_name = worst(g_again, g)
+    fault, fault_name = worst(g_fault, g)
+    log(f"[maintenance] remat vs plain bf16 step (B={cfg.batch_size}) on the card: loss "
+        f"{r_loss:.7g} vs {loss:.7g} (rel {loss_err:.3g}, limit {STEP_LOSS_RTOL}); gradients "
+        f"per tensor {ratio:.3g} x the limit (rel {STEP_GRAD_RTOL} in norm; worst {name}); a "
+        f"second plain step {floor:.3g} x (worst {floor_name}, loss {loss_again:.7g}); planted "
+        f"fault (working copy x {REMAT_FAULT_SCALE} between forward and backward) {fault:.3g} x "
+        f"(worst {fault_name}); launches remat {remat_got}, plain {plain_got}")
+    if not (loss_err <= STEP_LOSS_RTOL and ratio <= 1.0):
+        raise AssertionError("the remat step's loss or gradients differ from the plain step's")
+    if not fault > 1.0:
+        raise AssertionError("the remat check does not catch weights changed before the backward")
+    if remat_got != want_remat or plain_got != want_plain:
+        raise AssertionError(f"expected launches {want_remat} (remat) and {want_plain} (plain), "
+                             f"got {remat_got} and {plain_got}")
+    del task, state
+    return remat_got
+
+
+def time_remat_steps():
+    """Warm full-width bf16 train steps at batch 16 with and without remat on
+    one task and state, in turns (MAINT_TIMED = warm-up steps, steps per
+    round, rounds, profiled steps): ms per step from CUDA events (median of
+    the rounds) and on the host clock, the peak device memory of a step
+    (``torch.cuda.max_memory_allocated`` from a reset just before it, and
+    the part above what was allocated before it), and under
+    ``torch.profiler`` the device's busy ms and idle share. Returns them by
+    mode."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from polyffusion_tpu_torch.profile_unet import breakdown
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+
+    warm, per_round, rounds, profiled = MAINT_TIMED
+    cfg = full_cfg(bf16=True)
+    task = make_task(cfg, "cuda", seed=9, training=True)
+    state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm, bf16=True)
+    step = make_train_step(task)
+    batch = maintenance_batch(np.random.default_rng(9), cfg.batch_size)
+    modes = {"plain": False, "remat": True}
+    out = {m: {"event_ms": [], "host_ms": [], "peak_bytes": 0, "peak_above_bytes": 0}
+           for m in modes}
+
+    def run(n):
+        for _ in range(n):
+            step(state, batch, seed=0)
+
+    for mode, remat in modes.items():
+        task.cfg["remat"] = remat
+        run(warm)
+    for _ in range(rounds):
+        for mode, remat in modes.items():
+            task.cfg["remat"] = remat
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            run(per_round)
+            end.record()
+            torch.cuda.synchronize()
+            row = out[mode]
+            row["host_ms"].append((time.perf_counter() - t0) * 1e3 / per_round)
+            row["event_ms"].append(start.elapsed_time(end) / per_round)
+            peak = torch.cuda.max_memory_allocated()
+            row["peak_bytes"] = max(row["peak_bytes"], peak)
+            row["peak_above_bytes"] = max(row["peak_above_bytes"], peak - before)
+    for mode, remat in modes.items():
+        task.cfg["remat"] = remat
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(profiled)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[maintenance] {mode} bf16 train step (B={cfg.batch_size}), torch.profiler over "
+            f"{profiled} warm steps:")
+        busy_ms = breakdown(prof, wall_ms, profiled, "step")
+        row = out[mode]
+        row["busy_ms_per_step"] = busy_ms / profiled if busy_ms else None
+        row["idle_share"] = 1 - busy_ms / wall_ms if busy_ms else None
+        row["ms"] = statistics.median(row["event_ms"])
+        log(f"[maintenance] {mode} step: {row['ms']:.3f} ms (CUDA events, median of {rounds} "
+            f"rounds of {per_round}: {[round(x, 3) for x in row['event_ms']]}), host "
+            f"{[round(x, 3) for x in row['host_ms']]} ms; peak memory "
+            f"{row['peak_bytes'] / 2**30:.3f} GiB ({row['peak_above_bytes'] / 2**30:.3f} GiB "
+            f"above the state); device busy {row['busy_ms_per_step']} ms/step, idle share "
+            f"{row['idle_share']}")
+    ratio = out["remat"]["ms"] / out["plain"]["ms"]
+    log(f"[maintenance] remat / plain: {ratio:.3f} x the step's ms (CUDA events), peak memory "
+        f"{out['remat']['peak_bytes'] / out['plain']['peak_bytes']:.3f} x")
+    del task, state
+    return out
+
+
+def drive_fused_remat_steps(counters):
+    """One full-width bf16 train step at batch 16 with the GroupNorm-SiLU-conv
+    sites fused, without and then with remat, each with the launch counts set
+    to 0 just before it and read just after: plain 44 kernel-4 launches (12
+    two-input), 11 / 11 / 12 of kernels 1 / 2 / 6; remat twice the forward
+    kernels (88 kernel-4, 24 two-input; 22 kernel-1), the same 11 kernel-2
+    and 12 kernel-6 (the fused sites' backward recomputes through the plain
+    version). Returns the launches of each step."""
+    import torch
+
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+
+    cfg = full_cfg(bf16=True)
+    task = make_task(cfg, "cuda", seed=10, training=True, gn_conv="fused")
+    state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm, bf16=True)
+    step = make_train_step(task)
+    batch = maintenance_batch(np.random.default_rng(10), cfg.batch_size)
+    zero = {name: 0 for name in counters}
+    launches = {}
+    for mode, n in (("plain", 1), ("remat", 2)):
+        task.cfg["remat"] = mode == "remat"
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(state, batch, seed=0)["loss"].item()
+        secs = time.perf_counter() - t0
+        got = {name: c.launches for name, c in counters.items()}
+        n_two = counters["gn_silu_conv"].two_input_launches
+        want = dict(zero, gn_silu_conv=n * GN_CONV_SITES, packed_attention=n * ATTENTION_SITES,
+                    packed_attention_bwd=ATTENTION_SITES, gn_bwd=GROUPNORM_SITES - GN_CONV_SITES)
+        log(f"[maintenance] fused {mode} bf16 step (B={cfg.batch_size}): loss {loss:.6g}, "
+            f"{1e3 * secs:.3f} ms (host clock, first of its mode), launches {got}, two-input "
+            f"{n_two}")
+        if got != want or n_two != n * GN_CONV_TWO_INPUT or not np.isfinite(loss):
+            raise AssertionError(f"expected launches {want} with {n * GN_CONV_TWO_INPUT} "
+                                 f"two-input and a finite loss, got {got}, {n_two}, {loss}")
+        launches[mode] = got
+    del task, state
+    return launches
+
+
+def trace_kernel_counts(path):
+    """Device kernel events in a Chrome trace of ``torch.profiler``, by kernel
+    of the port (TRACE_KERNELS' name fragments), and all kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    counts = {frag: sum(frag in n for n in names)
+              for frags in TRACE_KERNELS.values() for frag in frags}
+    return counts, len(names)
+
+
+def write_pop909_release(origin, rng):
+    """Two pieces in POP909's piano-roll release layout (per track: onset
+    beat, bin, 4, offset beat, bin, 4, pitch, velocity; a beat table whose
+    fourth column is the position in the bar; a chord table)."""
+    os.makedirs(origin)
+    n_beats = 64
+    beat = np.zeros((n_beats, 6), np.int64)
+    beat[:, 3] = np.arange(n_beats) % 4
+
+    def track(n):
+        ob = rng.integers(0, n_beats - 2, n)
+        rows = np.stack([ob, rng.integers(0, 4, n), np.full(n, 4), ob + 1, rng.integers(0, 4, n),
+                         np.full(n, 4), rng.integers(40, 90, n), np.full(n, 80)], 1)
+        return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+    for i in range(2):
+        np.savez(os.path.join(origin, f"{i + 1:03d}.npz"), melody=track(30), bridge=track(20),
+                 piano=track(50), beat=beat, chord=np.zeros((n_beats, 14), np.int64))
+
+
+def drive_maintenance(counters, work):
+    """The ``[maintenance]`` phase, on the training path's ``chd8bar.pt``
+    under ``work``:
+
+    1. the songs of ``python -m polyffusion_tpu_torch.tools synth_corpus`` (its
+       ``main``, in this process, as every CLI here);
+    2. the training CLI on them, full width, bf16, batch 16, with ``--set
+       remat=true --set legacy_checkpoints=true --profile_steps 2,4``:
+       MAINT_STEPS steps (22 / 11 / 56 launches of kernels 1 / 2 / 6 a step,
+       11 of kernel 1 a validation batch), ``weights.pt``,
+       ``weights_best.pt``, ``info.txt``, and a trace naming kernels 1, 2 and
+       6 at 2 x (22, 11, 56) launches;
+    3. a remat step against a plain one (``check_remat_step``), then fused
+       plain and remat steps (``drive_fused_remat_steps``);
+    4. both steps timed, with peak memory and idle share (``time_remat_steps``);
+    5. ``python -m polyffusion_tpu_torch.convert --kind unet --reverse`` of the
+       run directory, ``--kind unet`` of ``weights.pt`` to ``.npz`` (equal to
+       the run's UNet tree), then one seeded DDIM-50 CFG-5 request each through
+       the inference CLI from the run directory, the reversed ``.pt`` and
+       ``weights.pt``: 550 kernel-1 launches each, rolls and MIDI files
+       byte-identical;
+    6. the other tools on the host: ``pop909_import`` on a seeded release,
+       ``remove_from_split``, ``cleanup_checkpoints`` on the phase's result
+       directory (removes a run without checkpoints, keeps the trained one).
+
+    Returns the launches by path and the phase's numbers."""
+    import pickle
+
+    import torch
+
+    from polyffusion_tpu_torch import tools
+    from polyffusion_tpu_torch.convert.__main__ import (
+        flatten_tree,
+        load_params_npz,
+        unet_tree_of_run,
+    )
+    from polyffusion_tpu_torch.convert.__main__ import main as convert_main
+    from polyffusion_tpu_torch.data import BatchLoader, SegmentDataset
+    from polyffusion_tpu_torch.inference import main as infer_main
+    from polyffusion_tpu_torch.main import main as train_main
+
+    t_phase = time.perf_counter()
+    songs, result = os.path.join(work, "maint_songs"), os.path.join(work, "maint_result")
+    run, pretrained = os.path.join(result, "sdf_chd8bar", "run"), os.path.join(work, "pretrained")
+    zero = {name: 0 for name in counters}
+    launches, numbers = {}, {}
+
+    t0 = time.perf_counter()
+    tools.main(["synth_corpus", "--out", songs, "--n_songs", str(MAINT_SONGS), "--n_bars",
+                str(MAINT_BARS), "--seed", "0"])
+    numbers["synth_corpus_s"] = time.perf_counter() - t0
+    _, val_ds = SegmentDataset.train_val_from_dir(songs, 0.9)
+    val_batches = len(BatchLoader(val_ds, full_cfg(bf16=True).batch_size))
+    start, stop = MAINT_PROFILE
+    args = ["--model", "sdf_chd8bar", "--output_dir", run, "--data_dir", songs,
+            "--pretrained_dir", pretrained, "--seed", "0", "--log_every", "1", "--max_steps",
+            str(MAINT_STEPS), "--profile_steps", f"{start},{stop}", "--set", "remat=true",
+            "--set", "legacy_checkpoints=true"]
+    state, secs, got, out = run_with_counts(counters, train_main, args)
+    want = dict(zero, packed_attention=REMAT_FWD * MAINT_STEPS + ATTENTION_SITES * val_batches,
+                packed_attention_bwd=ATTENTION_SITES * MAINT_STEPS,
+                gn_bwd=GROUPNORM_SITES * MAINT_STEPS)
+    log(f"[maintenance] training CLI (remat, legacy mirror, profiled steps {start}-{stop - 1}): "
+        f"{MAINT_STEPS} steps and {val_batches} val batch(es) in {secs:.3f} s (with setup), "
+        f"launches {got}")
+    if got != want or state.step != MAINT_STEPS:
+        raise AssertionError(f"expected launches {want} and step {MAINT_STEPS}, got {got} at "
+                             f"step {state.step}")
+    launches["maintenance_training"] = got
+    numbers["training_cli_s"] = secs
+    chk = os.path.join(run, "chkpts")
+    trace = os.path.join(run, "profile", f"trace_steps_{start}_{stop}.json")
+    for path in [os.path.join(chk, f) for f in ("weights.pt", "weights_best.pt", "info.txt")] + [
+            trace]:
+        if not os.path.exists(path):
+            raise AssertionError(f"the training CLI did not write {path}")
+    if f"[profile] trace written to {os.path.join(run, 'profile')}" not in out:
+        raise AssertionError("no [profile] line")
+    records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+    losses = [r[k] for r in records for k in ("train/loss", "val/loss") if k in r]
+    if not (len(losses) == MAINT_STEPS + 1 and np.isfinite(losses).all()):
+        raise AssertionError(f"bad metrics {records}")
+    ck = torch.load(os.path.join(chk, "weights.pt"), map_location="cpu", weights_only=True)
+    n_unet = len(state.params())
+    if not (ck["step"] == MAINT_STEPS and len(ck["optimizer"]["state"]) == n_unet
+            and ck["optimizer"]["param_groups"][0]["params"] == list(range(3 + n_unet))):
+        raise AssertionError("weights.pt does not hold the run's step and Adam state")
+    counts, n_kernels = trace_kernel_counts(trace)
+    steps = stop - start
+    per_step = {"packed_attention": REMAT_FWD, "packed_attention_bwd": ATTENTION_SITES,
+                "gn_bwd": GROUPNORM_SITES}
+    want_trace = {frag: steps * per_step[k] for k, frags in TRACE_KERNELS.items() for frag in frags}
+    log(f"[maintenance] trace {os.path.basename(trace)} ({os.path.getsize(trace) / 2**20:.1f} "
+        f"MiB): {n_kernels} device kernels in {steps} steps, of the port's {counts} (expected "
+        f"{want_trace}); weights.pt {os.path.getsize(os.path.join(chk, 'weights.pt')) / 2**20:.1f}"
+        f" MiB; info.txt {open(os.path.join(chk, 'info.txt')).read()!r}")
+    if counts != want_trace:
+        raise AssertionError(f"the trace names {counts}, expected {want_trace}")
+    numbers["trace_kernels_per_step"] = n_kernels / steps
+
+    launches["maintenance_remat_step"] = check_remat_step(counters)
+    fused = drive_fused_remat_steps(counters)
+    launches["maintenance_fused_plain_step"] = fused["plain"]
+    launches["maintenance_fused_remat_step"] = fused["remat"]
+    numbers["steps"] = time_remat_steps()
+
+    # the converter: the run directory -> a reference .pt; weights.pt -> a .npz
+    t0 = time.perf_counter()
+    reversed_pt = os.path.join(work, "maint_reversed.pt")
+    convert_main(["--kind", "unet", "--reverse", "--input", run, "--output", reversed_pt])
+    legacy_npz = os.path.join(work, "maint_legacy.npz")
+    convert_main(["--kind", "unet", "--input", os.path.join(chk, "weights.pt"), "--output",
+                  legacy_npz])
+    numbers["convert_s"] = time.perf_counter() - t0
+    got_tree, want_tree = (flatten_tree(load_params_npz(legacy_npz)),
+                           flatten_tree(unet_tree_of_run(run)))
+    if list(got_tree) != list(want_tree) or not all(
+            np.array_equal(got_tree[k], w) for k, w in want_tree.items()):
+        raise AssertionError("weights.pt's .npz is not the run's UNet tree")
+    run_cfg = os.path.join(run, "params.yaml")  # a .pt carries no config: the run's
+    sources = {"run": [run], "reversed": [reversed_pt, "--model", run_cfg],
+               "legacy": [os.path.join(chk, "weights.pt"), "--model", run_cfg]}
+    rolls, mids, numbers["request_s"] = {}, {}, {}
+    for name, source in sources.items():
+        out_dir = os.path.join(work, f"maint_cli_{name}")
+        (gen,), secs, got, _ = run_with_counts(counters, infer_main, [
+            "--chkpt_path", *source, "--data_dir", songs, "--song_fn", MAINT_SONG,
+            "--pretrained_dir", pretrained, "--ddim", "--length", "1", "--uncond_scale", "5",
+            "--seed", "0", "--output_dir", out_dir])
+        (mid,) = [f for f in os.listdir(out_dir) if f.endswith(".mid")]
+        rolls[name] = np.ascontiguousarray(gen).tobytes()
+        mids[name] = open(os.path.join(out_dir, mid), "rb").read()
+        log(f"[maintenance] inference CLI from the {name} weights: {secs:.3f} s, launches "
+            f"{got}, {mid} ({len(mids[name])} bytes)")
+        if got != dict(zero, packed_attention=LAUNCHES_PER_REQUEST):
+            raise AssertionError(f"expected {LAUNCHES_PER_REQUEST} kernel-1 launches, got {got}")
+        if gen.shape != (1, 2, 128, 128) or not np.isfinite(gen).all():
+            raise AssertionError(f"bad output: shape {gen.shape}")
+        launches[f"maintenance_cli_{name}"] = got
+        numbers["request_s"][name] = secs
+    if len(set(rolls.values())) != 1 or len(set(mids.values())) != 1:
+        raise AssertionError("the three weight sources sampled different rolls or MIDI files")
+
+    # the other tools, on the host
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(14)
+    write_pop909_release(os.path.join(work, "pop909_origin"), rng)
+    tools.main(["pop909_import", "--origin", os.path.join(work, "pop909_origin"), "--out",
+                os.path.join(work, "pop909_npz")])
+    imported = SegmentDataset.from_dir(os.path.join(work, "pop909_npz"))
+    split = os.path.join(work, "maint_split.pkl")
+    names = sorted(f for f in os.listdir(songs) if f.endswith(".npz"))
+    with open(split, "wb") as f:
+        pickle.dump((names[:-1], names[-1:]), f)
+    tools.main(["remove_from_split", "--split", split, "--song", names[0]])
+    with open(split, "rb") as f:
+        left = pickle.load(f)
+    crashed = os.path.join(result, "sdf_chd8bar", "crashed")
+    os.makedirs(os.path.join(crashed, "chkpts"))
+    tools.main(["cleanup_checkpoints", "--result_dir", result, "--yes"])
+    kept = sorted(os.listdir(os.path.join(result, "sdf_chd8bar")))
+    numbers["other_tools_s"] = time.perf_counter() - t0
+    log(f"[maintenance] pop909_import: {len(imported)} segments; remove_from_split: "
+        f"{len(left[0])} + {len(left[1])} songs left; cleanup_checkpoints kept {kept}")
+    if not (len(imported) > 0 and left == (names[1:-1], names[-1:]) and kept == ["run"]):
+        raise AssertionError("a maintenance tool did not do its work")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"[maintenance] phase {numbers['phase_s']:.3f} s; summary {json.dumps(numbers)}")
+    return launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -3989,6 +4432,8 @@ def main() -> int:
         cli, request_secs, mask = drive_inference_cli(counters, work)
         cache["inference_cli"] = map_cache_delta(before, "the inference CLI's requests A and B")
         profile_inpainting(work, mask, request_secs)
+        # the trainer's and converter's leftovers and the tools
+        maintenance, _ = drive_maintenance(counters, work)
         # the texture and PianoTree conditions, on the same songs and chd8bar.pt
         write_condition_encoders(os.path.join(work, "pretrained"), seed=6)
         check_conditions_against_cpu(work)
@@ -4053,6 +4498,9 @@ def main() -> int:
     def serving_launches(name):  # the [serve] and [expr] paths
         return {path: n[name] for path, n in serving.items()}
 
+    def maintenance_launches(name):  # the [maintenance] paths that launch the kernel
+        return {path: n[name] for path, n in maintenance.items() if n[name]}
+
     fwd_bf16 = [r for r in rows if r["shape"].endswith("bfloat16")]
     bf16 = [r for r in bwd_rows if r["shape"].endswith("bfloat16")]
     hm_bf16 = [r for r in hm_rows if r["shape"].endswith("bfloat16")]
@@ -4072,7 +4520,8 @@ def main() -> int:
                **{f"distill_{name}": n["packed_attention"] for name, n in distill.items()},
                **{f"sampling_{name}": n["packed_attention"] for name, n in students.items()},
                **{f"concat_{name}": n["packed_attention"] for name, n in concat.items()},
-               **serving_launches("packed_attention")},
+               **serving_launches("packed_attention"),
+               **maintenance_launches("packed_attention")},
               rows, rows[0], fwd_bf16),
         # B=16 T=1024 bf16: the train step's dominant shape
         entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
@@ -4084,7 +4533,8 @@ def main() -> int:
                "distill_cli": distill["cli"]["packed_attention_bwd"],
                "distill_cli_chain": distill["cli_chain"]["packed_attention_bwd"],
                "concat_training": concat["training"]["packed_attention_bwd"],
-               **serving_launches("packed_attention_bwd")},
+               **serving_launches("packed_attention_bwd"),
+               **maintenance_launches("packed_attention_bwd")},
               bwd_rows, bf16[0], bf16),
         # BH=512 T=1024 D=64 bf16: a batch-128 level-2 self-attention in head-major
         # form; on no model path, driven directly
@@ -4099,7 +4549,7 @@ def main() -> int:
                "distill_cli": distill["cli"]["gn_bwd"],
                "distill_cli_chain": distill["cli_chain"]["gn_bwd"],
                "concat_training": concat["training"]["gn_bwd"], **family,
-               **serving_launches("gn_bwd")},
+               **serving_launches("gn_bwd"), **maintenance_launches("gn_bwd")},
               gn_rows, gn_rows[0], gn_rows),
         # B=2 2x128x128 fp32: request A's sampler batch
         entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",
@@ -4113,7 +4563,8 @@ def main() -> int:
               "polyffusion_tpu/ops/fused_gn_conv.py:36",
               {"sampling_fused": gn_conv_paths["fused"]["gn_silu_conv"],
                "training_fused": fused_training["gn_silu_conv"],
-               **serving_launches("gn_silu_conv")}, gnc_rows, gnc_rows[1],
+               **serving_launches("gn_silu_conv"),
+               **maintenance_launches("gn_silu_conv")}, gnc_rows, gnc_rows[1],
               [r for r in gnc_rows if "bfloat16" in r["shape"]]),
         entry("gn_silu_conv_q", "polyffusion_tpu_torch/ops/csrc/gn_silu_conv.cu",
               "polyffusion_tpu/ops/fused_gn_conv.py:36",

@@ -1,7 +1,7 @@
 """Model presets: ``params/<model>.yaml`` into an attribute dict, and the run
 directory's ``params.yaml`` (a copy of the JAX package's ``config.py``:
-``Params``, ``load_params``, ``save_params``, ``params_differ``, over the port's
-own presets)."""
+``Params``, ``load_params``, ``save_params``, ``params_differ``,
+``available_presets``, ``convert_json_to_yaml``, over the port's own presets)."""
 
 from __future__ import annotations
 
@@ -47,3 +47,25 @@ def params_differ(a: Dict, b: Dict) -> list:
         if a.get(k) != b.get(k):
             diffs.append((k, a.get(k), b.get(k)))
     return diffs
+
+
+def available_presets() -> list:
+    return sorted(
+        f[:-5] for f in os.listdir(PARAMS_DIR) if f.endswith(".yaml")
+    )
+
+
+def convert_json_to_yaml(params_path: str, delete_old: bool = False) -> str:
+    """Migrate a legacy .json params file to .yaml (reference ``utils.py:600-611``,
+    non-interactive).  Returns the (possibly new) path."""
+    if params_path.endswith(".json"):
+        import json
+
+        with open(params_path) as f:
+            params = json.load(f)
+        new_path = params_path[:-5] + ".yaml"
+        save_params(params, new_path)
+        if delete_old:
+            os.remove(params_path)
+        return new_path
+    return params_path

@@ -10,6 +10,12 @@ way ``polyffusion_tpu/convert/torch_export.py`` maps it:
                                          -> ConvTranspose2d weight (I, O, kH, kW)
     norm scale / bias                    -> weight / bias
     GRU wi (in, 3H), wh (H, 3H), bi, bh  -> weight_ih_l0 (3H, in), weight_hh_l0, bias_*
+
+The submodules are the port's copies of JAX's ``convert/``: ``torch_import``
+(reference ``.pt`` -> the JAX package's parameter trees, as NumPy),
+``torch_export`` (trees and the port's training state -> reference ``.pt``
+checkpoints) and the CLI, ``python -m polyffusion_tpu_torch.convert``
+(``__main__``).
 """
 
 from __future__ import annotations
@@ -313,7 +319,7 @@ def lpips_state_from_jax(params: Mapping) -> StateDict:
     """JAX ``LPIPS`` params (``vgg.conv<idx>``, ``lin<k>`` of shape (1, 1, C,
     1)) -> the port's ``LPIPS`` state dict (the reference's
     ``net.slice<s>.<idx>``, ``lin<k>.model.1``)."""
-    from .models.lpips import SLICE_BOUNDS
+    from ..models.lpips import SLICE_BOUNDS
 
     out: StateDict = {}
     for name, sub in params["vgg"].items():

@@ -124,13 +124,20 @@ def load_unet_params(chkpt_path: str, use_ema: bool = False, prefixes=REFERENCE_
     - a reference-format ``.pt`` / ``.ckpt`` (``convert.reference_unet_state``,
       which strips the first of ``prefixes`` that matches).
 
-    JAX orbax run directories are not read yet (ROADMAP.md item 15)."""
+    A JAX orbax run directory is not read: the JAX package's converter
+    (``polyffusion_tpu/convert/__main__.py --kind unet --reverse``), run where
+    JAX is installed, writes its reference ``.pt`` (ROADMAP.md item 15).
+    The port's own ``python -m polyffusion_tpu_torch.convert --kind unet
+    --reverse`` writes one from a UNet ``.npz`` tree."""
     if os.path.isdir(chkpt_path):
         last = os.path.join(chkpt_path, "chkpts", "last.pt")
         if not os.path.exists(last):
             raise NotImplementedError(
                 f"{chkpt_path} has no chkpts/last.pt: it is not a run directory of the "
-                "port's trainer (JAX orbax run directories are ROADMAP.md item 15)"
+                "port's trainer. For a JAX orbax run directory, run the JAX package's "
+                "converter (polyffusion_tpu/convert/__main__.py) with --kind unet --reverse "
+                "--input <run dir> --output weights.pt where JAX is installed, then pass that "
+                ".pt (ROADMAP.md item 15)"
             )
         ckpt = torch.load(last, map_location="cpu", weights_only=True)
         if use_ema:

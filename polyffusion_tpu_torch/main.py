@@ -12,8 +12,10 @@ DDPM family (``ddpm``) and the KL autoencoder (``autoencoder``):
 Model presets come from ``polyffusion_tpu_torch/params/*.yaml``; the run
 directory gets a ``params.yaml`` copy, ``torch.save`` checkpoints under
 ``chkpts/`` and ``metrics.jsonl``. A preset's ``tfr_*`` keys ([high, low])
-become teacher-forcing schedules. Training runs on the GPU unless ``--device
-cpu`` is given.
+become teacher-forcing schedules; ``remat`` (sdf presets) recomputes the
+UNet's activations in the backward, ``legacy_checkpoints`` also writes the
+reference learner's ``weights.pt``. ``--profile_steps START,STOP`` traces a
+window of steps. Training runs on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from .data import SegmentDataset, make_loaders
 from .device import DeviceLike
 from .models.encoders import build_frozen_encoders
 from .tasks import AutoencoderTask, Chd8BarTask, DDPMTask, PnoTreeVAETask, SDFTask
-from .tasks.sdf import refuse_unported_trainer_keys
 from .train import Trainer
 from .train.schedulers import make_param_scheduler
 
@@ -47,7 +48,6 @@ def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 
     int8 route has no gradient); ``Chd8BarTask``; ``PnoTreeVAETask``;
     ``DDPMTask``; ``AutoencoderTask``."""
     model_name = cfg["model_name"]
-    refuse_unported_trainer_keys(cfg)
     generator = torch.Generator().manual_seed(seed)
     if model_name.startswith("sdf"):
         return SDFTask(cfg, **build_frozen_encoders(cfg, pretrained_dir), device=device,
@@ -95,7 +95,15 @@ def main(argv=None):
         "--set channels=32 --set 'channel_multipliers=[1,2]' — the run dir's "
         "params.yaml records the overridden config",
     )
+    p.add_argument("--profile_steps", default=None, metavar="START,STOP",
+                   help="trace steps START to STOP - 1 with torch.profiler (host and device) "
+                   "into output_dir/profile as a Chrome trace")
     args = p.parse_args(argv)
+    profile_steps = None
+    if args.profile_steps:
+        profile_steps = tuple(int(x) for x in args.profile_steps.split(","))
+        if len(profile_steps) != 2:
+            raise SystemExit(f"--profile_steps expects START,STOP, got {args.profile_steps!r}")
 
     cfg = load_params(args.model)
     for kv in args.set:
@@ -128,7 +136,7 @@ def main(argv=None):
     )
     trainer = Trainer(task, cfg, output_dir, max_steps=args.max_steps,
                       log_every=args.log_every, save_every=args.save_every,
-                      param_scheduler=make_param_scheduler(cfg))
+                      param_scheduler=make_param_scheduler(cfg), profile_steps=profile_steps)
     print(f"[train] model={args.model} device={task.device} batch={cfg['batch_size']} "
           f"out={output_dir}")
     return trainer.fit(train_dl, val_dl, seed=args.seed, resume=args.resume)

@@ -212,7 +212,10 @@ def run_encoder_state(run_dir: str, model_name: str, prefix: str) -> Dict[str, t
     if not (os.path.exists(params_path) and os.path.exists(last)):
         raise NotImplementedError(
             f"{run_dir} has no params.yaml and chkpts/last.pt: it is not a run directory of "
-            "the port's trainer (JAX orbax run directories are ROADMAP.md item 15)")
+            "the port's trainer. A JAX orbax run directory is read by the JAX package only: "
+            "its converter (polyffusion_tpu/convert/__main__.py, run where JAX is installed) "
+            "exports a UNet run with --kind unet --reverse, and an encoder's run not at all "
+            "(ROADMAP.md item 15)")
     got = load_params(params_path).get("model_name")
     if got != model_name:
         raise ValueError(f"{run_dir} is a {got!r} run, not a {model_name!r} run")
@@ -272,8 +275,9 @@ def build_frozen_encoders(cfg, pretrained_dir: Optional[str] = None) -> Dict[str
       ``pnotree.npz`` or ``pnotree.pt`` (the reference PianoTree VAE).
 
     A run directory's ``params.yaml`` must name its model (``chd_8bar``,
-    ``pnotree_vae``). JAX orbax run directories are not read (``ROADMAP.md``
-    item 15)."""
+    ``pnotree_vae``). A JAX orbax run directory is not read (``ROADMAP.md``
+    item 15): the JAX package's converter (``polyffusion_tpu/convert/__main__.py``)
+    exports only a UNet run (``--kind unet --reverse``)."""
     cond_type = cfg.get("cond_type", "chord")
     use_enc = bool(cfg.get("use_enc", cond_type == "pnotree"))
     encoders: Dict[str, nn.Module] = {}

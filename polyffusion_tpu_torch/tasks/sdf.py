@@ -5,14 +5,18 @@ dropout to -1s per ``cond_mode`` (cond, uncond, mix, mix2), optionally a
 blurry low-resolution copy of the roll as extra input channels
 (``concat_blurry``, ``sdf_concat``), and the eps-MSE diffusion loss. A
 ``v_prediction`` config (a distilled student, ``polyffusion_tpu_torch.distill``)
-samples through the v->eps adapter and is not trained by this loss."""
+samples through the v->eps adapter and is not trained by this loss. With
+``remat`` the loss recomputes the UNet's activations in the backward instead
+of keeping them (JAX ``jax.checkpoint(self.apply_eps)``)."""
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..data.loader import decompress_batch
 from ..device import DeviceLike, resolve_device
@@ -28,17 +32,6 @@ COND_TYPES = ("chord", "txt", "pnotree", "chord+txt")
 SEG_STEPS = 32  # the encoders' 2-bar segment, in 16th-note steps
 
 
-def refuse_unported_trainer_keys(cfg) -> None:
-    """``remat`` (JAX ``tasks/sdf.py:218-221``) and ``legacy_checkpoints`` (JAX
-    ``train/loop.py:128-160``) are not ported: a run that sets either would
-    compute or write something other than what it asked for. A key set to
-    false asks for nothing."""
-    keys = [key for key in ("remat", "legacy_checkpoints") if cfg.get(key) not in (None, False)]
-    if keys:
-        raise NotImplementedError(
-            f"{', '.join(keys)}: not ported yet (ROADMAP.md item 19)")
-
-
 def blurry_image(x: torch.Tensor, ratio: float = 0.25) -> torch.Tensor:
     """NCHW ``x``: bicubic antialiased downsample by ``ratio``, nearest upsample
     back, clipped to [0, 1] (JAX ``blurry_image``, reference ``utils.py:552-567``;
@@ -47,6 +40,23 @@ def blurry_image(x: torch.Tensor, ratio: float = 0.25) -> torch.Tensor:
     small = F.interpolate(x, size=(int(h * ratio), int(w * ratio)), mode="bicubic",
                           align_corners=False, antialias=True)
     return F.interpolate(small, size=(h, w), mode="nearest").clamp(0.0, 1.0)
+
+
+def make_unet(cfg, gn_conv: str = "unfused") -> UNetModel:
+    """A new UNet of an ``sdf*`` config, in fp32 with torch's default init, on
+    the CPU."""
+    return UNetModel(
+        in_channels=cfg.in_channels,
+        out_channels=cfg.out_channels,
+        channels=cfg.channels,
+        n_res_blocks=cfg.n_res_blocks,
+        attention_levels=tuple(cfg.attention_levels),
+        channel_multipliers=tuple(cfg.channel_multipliers),
+        n_heads=cfg.n_heads,
+        tf_layers=cfg.tf_layers,
+        d_cond=cfg.d_cond,
+        gn_conv=gn_conv,
+    )
 
 
 class StepNoise(NamedTuple):
@@ -102,7 +112,6 @@ class SDFTask:
         self.cond_type = cfg.get("cond_type", "chord")
         if self.cond_type not in COND_TYPES:
             raise NotImplementedError(f"cond_type {self.cond_type!r}")
-        refuse_unported_trainer_keys(cfg)
         self.concat_blurry = bool(cfg.get("concat_blurry", False))
         self.concat_ratio = float(cfg.get("concat_ratio", 0.25))
         # a distilled student predicts v; only the session reads distill_grid
@@ -145,19 +154,7 @@ class SDFTask:
     def make_unet(self) -> UNetModel:
         """A new UNet of this task's config and GroupNorm-SiLU-conv route, in
         fp32 with torch's default init, on the CPU."""
-        cfg = self.cfg
-        return UNetModel(
-            in_channels=cfg.in_channels,
-            out_channels=cfg.out_channels,
-            channels=cfg.channels,
-            n_res_blocks=cfg.n_res_blocks,
-            attention_levels=tuple(cfg.attention_levels),
-            channel_multipliers=tuple(cfg.channel_multipliers),
-            n_heads=cfg.n_heads,
-            tf_layers=cfg.tf_layers,
-            d_cond=cfg.d_cond,
-            gn_conv=self.gn_conv,
-        )
+        return make_unet(self.cfg, self.gn_conv)
 
     def _place(self) -> None:
         if self.bf16 and not self.training:
@@ -288,7 +285,14 @@ class SDFTask:
                                 drop_txt=noise.drop_txt)
         x0 = batch[0].to(self.device, torch.float32)
         cond_concat = blurry_image(x0, self.concat_ratio) if self.concat_blurry else None
-        loss = diffusion_loss(self.apply_eps, self._schedule_dev, x0, cond, noise.t, noise.noise,
+        apply = self.apply_eps
+        if self.cfg.get("remat", False):
+            # the backward runs the UNet's forward again instead of keeping its
+            # activations. The forward draws no random number (t, the noise and
+            # the coins come in ``noise``), so no generator state is kept for it.
+            apply = partial(checkpoint, self.apply_eps, use_reentrant=False,
+                            preserve_rng_state=False)
+        loss = diffusion_loss(apply, self._schedule_dev, x0, cond, noise.t, noise.noise,
                               cond_concat)
         return loss, {"loss": loss}
 

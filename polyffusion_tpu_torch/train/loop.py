@@ -10,7 +10,13 @@
 - metrics to stdout and ``metrics.jsonl``, with ``steps_per_sec``;
 - an optional ``ParameterScheduler`` (teacher forcing) whose values for the
   current step reach the task's ``draw_noise``; validation runs it in eval
-  mode, which pins teacher forcing to its floor.
+  mode, which pins teacher forcing to its floor;
+- ``legacy_checkpoints: true`` (an sdf task): every save also writes the
+  reference learner's ``chkpts/weights.pt``, and on a new best val loss
+  ``weights_best.pt`` and ``info.txt`` (reference ``learner.py:104-124``);
+- ``profile_steps`` (START, STOP): a ``torch.profiler`` window over those
+  steps, written as a Chrome trace under ``<output_dir>/profile/`` once it
+  closes.
 """
 
 from __future__ import annotations
@@ -19,12 +25,13 @@ import json
 import math
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import yaml
 
 from ..config import Params, params_differ, save_params
+from ..models.unet import UNetModel
 from .state import TrainState, create_state, param_count
 from .step import make_eval_step, make_train_step
 
@@ -53,13 +60,16 @@ class Trainer:
         keep_checkpoints: int = 3,
         save_every: int = 1,
         param_scheduler=None,
+        profile_steps: Optional[Tuple[int, int]] = None,
     ):
         """``task`` must hold fp32 weights (built with ``training=True``); the
         trainer trains ``task.model``, in bf16 over fp32 masters where
         ``task.bf16``. ``save_every``: validate and checkpoint every N epochs
         (default 1, the reference's per-epoch cadence; the final epoch always
         saves). ``param_scheduler``: a ``train.schedulers.ParameterScheduler``
-        or None."""
+        or None. ``profile_steps``: (START, STOP), the steps traced with
+        ``torch.profiler`` (steps START to STOP - 1, counted from 0 as the
+        checkpoints count them)."""
         self.task = task
         self.cfg = cfg
         self.param_scheduler = param_scheduler
@@ -67,6 +77,10 @@ class Trainer:
         self.log_every = log_every
         self.keep_checkpoints = keep_checkpoints
         self.save_every = max(1, int(save_every))
+        if profile_steps is not None and not 0 <= profile_steps[0] < profile_steps[1]:
+            raise ValueError(f"profile_steps {profile_steps}: need 0 <= START < STOP")
+        self.profile_steps = profile_steps
+        self._profiler = None
 
         os.makedirs(output_dir, exist_ok=True)
         self.output_dir = output_dir
@@ -85,6 +99,11 @@ class Trainer:
         self.ema_decay = cfg.get("ema_decay", None)
         self.train_step = make_train_step(task, ema_decay=self.ema_decay)
         self.eval_step = make_eval_step(task)
+        # the reference learner's checkpoints beside the port's (JAX
+        # train/loop.py:128-180); the best val loss of this process decides
+        # weights_best.pt, as in JAX
+        self.legacy_ckpt = bool(cfg.get("legacy_checkpoints", False))
+        self._best_val = float("inf")
 
     # -- checkpointing ---------------------------------------------------------
 
@@ -100,9 +119,10 @@ class Trainer:
         torch.save(obj, path + ".tmp")
         os.replace(path + ".tmp", path)
 
-    def save(self, state: TrainState, val_loss: float) -> None:
+    def save(self, state: TrainState, val_loss: float, epoch: int = 0) -> None:
         """Rolling ``last.pt``, and ``step_<n>.pt`` if it is among the best
-        ``keep_checkpoints`` val losses (a worse one is not kept)."""
+        ``keep_checkpoints`` val losses (a worse one is not kept); with
+        ``legacy_checkpoints``, the reference learner's files too."""
         ckpt = {**state.state_dict(), "val_loss": float(val_loss)}
         self._write(ckpt, "last.pt")
         best = [e for e in self._best_index() if e["step"] != state.step]
@@ -119,6 +139,42 @@ class Trainer:
             json.dump(keep, f)
         os.replace(os.path.join(self.ckpt_dir, "best.json.tmp"),
                    os.path.join(self.ckpt_dir, "best.json"))
+        if self.legacy_ckpt:
+            self._save_legacy(state, val_loss, epoch)
+
+    def _save_legacy(self, state: TrainState, val_loss: float, epoch: int) -> None:
+        """``weights.pt`` = the reference learner's checkpoint of the fp32
+        masters and Adam state (``convert.torch_export.export_learner_checkpoint``);
+        on a new best val loss also ``weights_best.pt`` and ``info.txt``
+        (reference ``learner.write_epoch_info``, learner.py:108-111). The
+        layout holds the sdf UNet only: another task prints that it skipped."""
+        from ..convert.torch_export import export_learner_checkpoint
+
+        if not hasattr(self.task, "schedule"):
+            print("[legacy ckpt] skipped: task has no diffusion schedule (SDF only)")
+            return
+        if not isinstance(self.task.model, UNetModel):
+            # the plain DDPM family has a schedule but not the sdf UNet
+            print("[legacy ckpt] skipped: the learner layout holds the sdf UNet only (SDF only)")
+            return
+        is_best = val_loss < self._best_val
+        kwargs = dict(
+            schedule=self.task.schedule,
+            opt_state=state.optimizer.state_dict(),
+            step=state.step,
+            epoch=epoch,
+            learning_rate=float(self.cfg.learning_rate),
+            fp16=False,
+        )
+        params = state.params()
+        export_learner_checkpoint(params, os.path.join(self.ckpt_dir, "weights.pt"), **kwargs)
+        if is_best:
+            self._best_val = val_loss
+            export_learner_checkpoint(params, os.path.join(self.ckpt_dir, "weights_best.pt"),
+                                      **kwargs)
+            with open(os.path.join(self.ckpt_dir, "info.txt"), "w") as f:
+                f.write(str(epoch))
+                f.write(str(val_loss))
 
     def try_restore(self, state: TrainState) -> TrainState:
         """Load ``last.pt``, which every save writes. It is read to the CPU: the
@@ -169,7 +225,18 @@ class Trainer:
             if self.param_scheduler is not None:
                 self.param_scheduler.train()
             for batch in train_dl:
-                metrics = self.train_step(state, batch, seed, sched=self._sched(state.step))
+                if self.profile_steps and state.step == self.profile_steps[0]:
+                    self._start_profile()
+                if self._profiler is not None:
+                    with torch.profiler.record_function(f"train_step {state.step}"):
+                        metrics = self.train_step(state, batch, seed,
+                                                  sched=self._sched(state.step))
+                    if state.step == self.profile_steps[1]:
+                        t0 = time.perf_counter()
+                        self._stop_profile()
+                        window_t0 += time.perf_counter() - t0  # writing it is not training time
+                else:
+                    metrics = self.train_step(state, batch, seed, sched=self._sched(state.step))
                 if state.step % self.log_every == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}  # waits for the card
                     if not math.isfinite(metrics["loss"]):
@@ -187,9 +254,33 @@ class Trainer:
 
             if done or epoch == max_epoch - 1 or (epoch + 1) % self.save_every == 0:
                 val_loss = self.validate(state, val_dl, epoch, logger)
-                self.save(state, val_loss)
+                self.save(state, val_loss, epoch)
                 # validation is not training time
                 window_t0, window_step0 = time.perf_counter(), state.step
+        if self._profiler is not None:  # the run ended inside the window
+            self._stop_profile()
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.task.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_profile(self) -> None:
+        """Close the window (waiting for the card, so that the trace holds its
+        kernels) and write the Chrome trace (JAX's ``[profile]`` line)."""
+        if self.task.device.type == "cuda":
+            torch.cuda.synchronize(self.task.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        out = os.path.join(self.output_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        start, stop = self.profile_steps
+        prof.export_chrome_trace(os.path.join(out, f"trace_steps_{start}_{stop}.json"))
+        print(f"[profile] trace written to {out}")
 
     def _sched(self, step: int) -> Optional[Dict[str, float]]:
         return None if self.param_scheduler is None else self.param_scheduler.step(step)

@@ -258,7 +258,9 @@ def test_load_unet_params_reads_reference_checkpoints(tmp_path, prefix):
 
 def test_load_unet_params_refuses_other_directories(tmp_path):
     (tmp_path / "chkpts" / "100").mkdir(parents=True)  # an orbax step directory
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # the route for a JAX orbax run directory: the JAX package's converter
+    with pytest.raises(NotImplementedError,
+                       match=r"polyffusion_tpu/convert/__main__\.py.*--reverse.*item 15"):
         load_unet_params(str(tmp_path))
     # a ddpm config takes the DDPM route (generate_ddpm), not the sdf task's
     with pytest.raises(ValueError, match="generate_ddpm"):
