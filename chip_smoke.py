@@ -410,6 +410,18 @@ EXPR_RUNS = [
     ("pnt_acc", "run_sdf_pnotree_from_run", "pretrained_runs", ["--scales", "0,5"], 1, 2),
 ]
 DUMP_IMAGES = 11  # q0.png and one every n_steps // 10 of the 1000 steps
+# [parallel]: the full-width bf16 sdf_chd8bar train step at batch 16 through
+# each route of a one-rank NCCL group against the plain one-process step from
+# the same weights, batch and noise. bf16 rounds at 2^-8: tp's row-parallel
+# sites add their bias after the sum, not inside the conv, which moves some
+# activations by an ulp, so the gradients are held in relative norm over all
+# of them; the planted fault (the gradient of the first half of the batch
+# rows only, as a reduction that dropped a rank would leave it) must miss.
+PARALLEL_ROUTES = ("dp", "fsdp", "tp1")
+PARALLEL_LOSS_RTOL, PARALLEL_NORM_RTOL, PARALLEL_GRAD_RTOL = 1e-3, 1e-2, 2e-2
+PARALLEL_TIMED = 5  # warm steps timed per route
+PARALLEL_CLI_STEPS, PARALLEL_RESUME_STEPS = 4, 2
+PARALLEL_SAMPLE_BATCH = 16  # the InferenceSession request, DDIM-50 CFG 5
 # [maintenance]: the trainer's and converter's leftovers and the tools, on the
 # full-width sdf_chd8bar in bf16 at its batch 16 with the training path's
 # chd8bar.pt. MAINT_SONGS synthetic songs of MAINT_BARS bars written by
@@ -3941,6 +3953,191 @@ def drive_expr(counters, work):
     return launches
 
 
+def drive_parallel(counters, work, smi):
+    """``[parallel]``: the port's parallelism on the card, in process groups
+    of one rank (NCCL forbids two ranks on one card).
+
+    - The full-width bf16 ``sdf_chd8bar`` train step at batch 16 through
+      each of PARALLEL_ROUTES (dp; fsdp, FSDP2 one-way shards; tp=1, the tp
+      modules on a (1, 1) mesh) against the plain one-process step from the
+      same weights, batch and noise: loss, grad norm and gradients within
+      PARALLEL_*_RTOL; the planted fault (the first half of the rows only)
+      must miss. Kernels 1 / 2 / 6 at 11 / 11 / 56 launches a step on every
+      route, and each route's warm ms per step.
+    - An InferenceSession request (DDIM-50 CFG 5, batch PARALLEL_SAMPLE_BATCH)
+      on the dp mesh with ``fsdp_params=True``: the same bytes as the
+      unsharded session's, 550 kernel-1 launches.
+    - ``polyffusion_tpu_torch.main --fsdp`` (its own one-rank group) for
+      PARALLEL_CLI_STEPS steps, a checkpoint, ``--resume`` for
+      PARALLEL_RESUME_STEPS, then one inference-CLI DDIM-50 request from that
+      run directory (550 kernel-1 launches).
+
+    Returns the launches by path."""
+    import torch
+    import torch.distributed as dist
+
+    from polyffusion_tpu_torch.data import BatchLoader, SegmentDataset
+    from polyffusion_tpu_torch.inference import InferenceSession
+    from polyffusion_tpu_torch.inference import main as infer_main
+    from polyffusion_tpu_torch.main import main as train_main
+    from polyffusion_tpu_torch.parallel import init_process_group, make_mesh, make_tp_mesh
+    from polyffusion_tpu_torch.parallel.mesh import full
+    from polyffusion_tpu_torch.train import create_state, make_train_step
+
+    cfg = full_cfg(bf16=True)
+    zero = {name: 0 for name in counters}
+    per_step = dict(zero, packed_attention=ATTENTION_SITES, packed_attention_bwd=ATTENTION_SITES,
+                    gn_bwd=GROUPNORM_SITES)
+    batch = maintenance_batch(np.random.default_rng(15), cfg.batch_size)
+    task = make_task(cfg, "cuda", seed=15, training=True)
+    noise = task.draw_noise(batch, torch.Generator(device="cuda").manual_seed(15))
+    del task
+    init_process_group()
+    meshes = {"plain": None, "dp": make_mesh(), "fsdp": make_mesh(), "tp1": make_tp_mesh(1, 1)}
+    launches, ms = {}, {}
+
+    def step_of(route, rows=slice(None)):
+        """One step from seed-15 weights on ``rows`` of the batch; returns the
+        loss, the norm, the (clipped) master gradients whole, the launches,
+        and the state and step to time."""
+        task = make_task(cfg, "cuda", seed=15, training=True)
+        mesh, fsdp = meshes[route], route == "fsdp"
+        state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm, bf16=True,
+                             mesh=mesh, fsdp=fsdp)
+        step = make_train_step(task, mesh=mesh, fsdp=fsdp)
+        part = tuple(None if v is None else v[rows] for v in batch)
+        zero_counts(counters)
+        metrics = step(state, part, seed=0,
+                       noise=noise._replace(t=noise.t[rows], noise=noise.noise[rows]))
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        names = [n for n, _ in task.unet.named_parameters()]
+        grads = {n: full(m.grad).float() for n, m in zip(names, state.weights.masters)}
+        return float(metrics["loss"]), float(metrics["grad_norm"]), grads, got, state, step
+
+    def grad_err(got, want):
+        num = sum(float((got[k] - w).square().sum()) for k, w in want.items())
+        return (num / sum(float(w.square().sum()) for w in want.values())) ** 0.5
+
+    def timed(route, state, step):
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_TIMED):
+            step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        ms[route] = (time.perf_counter() - t0) * 1e3 / PARALLEL_TIMED
+        got = {name: c.launches for name, c in counters.items()}
+        want = {name: n * PARALLEL_TIMED for name, n in per_step.items()}
+        if got != want:
+            raise AssertionError(f"[parallel] {route}: {PARALLEL_TIMED} steps launched {got}, "
+                                 f"expected {want}")
+        return got
+
+    loss, norm, grads, _, state, step = step_of("plain")
+    timed("plain", state, step)
+    del state, step
+    fault_loss, _, fault_grads, _, _, _ = step_of("plain", slice(0, cfg.batch_size // 2))
+    fault = grad_err(fault_grads, grads)
+    for route in PARALLEL_ROUTES:
+        r_loss, r_norm, r_grads, got, state, step = step_of(route)
+        loss_err, norm_err = abs(r_loss - loss) / abs(loss), abs(r_norm - norm) / abs(norm)
+        err = grad_err(r_grads, grads)
+        timed_got = timed(route, state, step)
+        del state, step
+        launches[f"parallel_{route}_steps"] = {name: got[name] + timed_got[name]
+                                               for name in counters}
+        log(f"[parallel] {route} bf16 step (B={cfg.batch_size}) vs the plain step on the card: "
+            f"loss {r_loss:.7g} vs {loss:.7g} (rel {loss_err:.3g}, limit {PARALLEL_LOSS_RTOL}), "
+            f"grad_norm {r_norm:.7g} vs {norm:.7g} (rel {norm_err:.3g}, limit "
+            f"{PARALLEL_NORM_RTOL}), gradients rel {err:.3g} in norm (limit "
+            f"{PARALLEL_GRAD_RTOL}); planted fault (the first {cfg.batch_size // 2} rows' "
+            f"gradient, loss {fault_loss:.7g}) rel {fault:.3g}; launches a step {got}; "
+            f"{ms[route]:.3f} ms/step warm vs plain {ms['plain']:.3f} (host clock, "
+            f"{PARALLEL_TIMED} steps; {smi})")
+        if got != per_step:
+            raise AssertionError(f"[parallel] {route}: expected launches {per_step}, got {got}")
+        if not (loss_err <= PARALLEL_LOSS_RTOL and norm_err <= PARALLEL_NORM_RTOL
+                and err <= PARALLEL_GRAD_RTOL):
+            raise AssertionError(f"[parallel] {route}: the step differs from the plain step's")
+    if not fault > PARALLEL_GRAD_RTOL:
+        raise AssertionError("[parallel] the check does not catch a gradient of half the rows")
+
+    # sampling: the unsharded session, then the same task's weights FSDP2-sharded
+    sample_task = make_task(cfg, "cuda", seed=16)
+    rng = np.random.default_rng(16)
+    cond = sample_task.encode_chord(torch.from_numpy(random_chords(rng, PARALLEL_SAMPLE_BATCH)))
+    start = rng.standard_normal((PARALLEL_SAMPLE_BATCH, 128, 128, 2)).astype(np.float32)
+    outs, secs = {}, {}
+    for kind, kwargs in (("plain", {}), ("fsdp_params", dict(mesh=meshes["dp"], fsdp_params=True))):
+        session = InferenceSession(sample_task, sampler="ddim", ddim_steps=50, seed=0, **kwargs)
+        outs[kind], secs[kind], got, _ = run_with_counts(
+            counters, session.predict, cond, None, CLI_CFG_SCALE, False, None, None, start)
+        if got != dict(zero, packed_attention=LAUNCHES_PER_REQUEST):
+            raise AssertionError(f"[parallel] {kind} session: launches {got}")
+    launches["parallel_session_fsdp_params"] = got
+    same = np.array_equal(outs["plain"], outs["fsdp_params"])
+    log(f"[parallel] InferenceSession DDIM-50 CFG {CLI_CFG_SCALE} (batch "
+        f"{PARALLEL_SAMPLE_BATCH}) with a 1-rank mesh and fsdp_params: same bytes as "
+        f"unsharded {same}, max_abs_err {np.abs(outs['plain'] - outs['fsdp_params']).max():.3g}; "
+        f"{secs['fsdp_params']:.3f} s vs {secs['plain']:.3f} s ({smi})")
+    if not same or not np.isfinite(outs["plain"]).all():
+        raise AssertionError("[parallel] the fsdp_params session's output differs")
+    del sample_task
+    dist.destroy_process_group()
+
+    # the training CLI with --fsdp, then the inference CLI on its run directory
+    pretrained, data = os.path.join(work, "pretrained"), os.path.join(work, "songs")
+    run = os.path.join(work, "run_fsdp")
+    _, val_ds = SegmentDataset.train_val_from_dir(data, 0.9)
+    val_batches = len(BatchLoader(val_ds, cfg.batch_size))
+    args = ["--model", "sdf_chd8bar", "--output_dir", run, "--data_dir", data,
+            "--pretrained_dir", pretrained, "--log_every", "1", "--seed", "0", "--fsdp"]
+    total = PARALLEL_CLI_STEPS
+    for steps, extra in ((PARALLEL_CLI_STEPS, []), (PARALLEL_RESUME_STEPS, ["--resume"])):
+        total += steps if extra else 0
+        label = "cli_fsdp" + ("_resume" if extra else "")
+        state, secs[label], got, out = run_with_counts(
+            counters, train_main, args + ["--max_steps", str(total)] + extra)
+        want = dict(zero, packed_attention=ATTENTION_SITES * (steps + val_batches),
+                    packed_attention_bwd=ATTENTION_SITES * steps, gn_bwd=GROUPNORM_SITES * steps)
+        launches[f"parallel_{label}"] = got
+        log(f"[parallel] main --fsdp{' --resume' if extra else ''}: {steps} steps and "
+            f"{val_batches} val batches in {secs[label]:.3f} s (with setup; {smi}), "
+            f"launches {got}")
+        if got != want or state.step != total or "devices=1" not in out or "fsdp=True" not in out:
+            raise AssertionError(f"[parallel] main --fsdp: launches {got} (want {want}), step "
+                                 f"{state.step}, output {out[-400:]}")
+        if extra and f"[resume] restored checkpoint at step {PARALLEL_CLI_STEPS}" not in out:
+            raise AssertionError("[parallel] main --fsdp --resume did not restore")
+    if dist.is_initialized():
+        raise AssertionError("[parallel] main --fsdp left its process group behind")
+    records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+    step_ms = [1e3 / r["steps_per_sec"] for r in records if "train/loss" in r]
+    layout = {}
+    for r in (run, os.path.join(work, "run")):
+        ckpt = torch.load(os.path.join(r, "chkpts", "last.pt"), map_location="cpu",
+                          weights_only=True)
+        layout[r] = {k: tuple(v.shape) for k, v in ckpt["params"].items()}
+    if layout[run] != layout[os.path.join(work, "run")]:
+        raise AssertionError("[parallel] the --fsdp checkpoint's tensors differ from a "
+                             "one-process run's")
+    (gen,), secs["cli_request"], got, _ = run_with_counts(counters, infer_main, [
+        "--chkpt_path", run, "--data_dir", data, "--song_fn", CLI_SONG, "--pretrained_dir",
+        pretrained, "--ddim", "--length", "1", "--output_dir", os.path.join(work, "cli_fsdp")])
+    launches["parallel_cli_request"] = got
+    log(f"[parallel] inference CLI on the --fsdp run --ddim --length 1: "
+        f"{secs['cli_request']:.3f} s, launches {got}; the run's host ms per logged step "
+        f"{[round(x, 3) for x in step_ms]} ({smi})")
+    if got != dict(zero, packed_attention=LAUNCHES_PER_REQUEST):
+        raise AssertionError(f"[parallel] CLI request: expected {LAUNCHES_PER_REQUEST} kernel-1 "
+                             f"launches, got {got}")
+    if gen.shape != (1, 2, 128, 128) or not np.isfinite(gen).all():
+        raise AssertionError(f"[parallel] CLI request: bad output {gen.shape}")
+    log(f"[parallel] summary {json.dumps({'ms_per_step': ms, 'secs': secs, 'card': smi})}")
+    return launches
+
+
 def maintenance_batch(rng, b):
     """A bf16 train batch as the feeder sends it (a uint8 roll, chords), on the card."""
     import torch
@@ -4434,6 +4631,10 @@ def main() -> int:
         profile_inpainting(work, mask, request_secs)
         # the trainer's and converter's leftovers and the tools
         maintenance, _ = drive_maintenance(counters, work)
+        # parallelism: dp, fsdp and tp in one-rank groups, the CLI with --fsdp
+        t0 = time.perf_counter()
+        parallel = drive_parallel(counters, work, smi)
+        log(f"[parallel] phase {time.perf_counter() - t0:.3f} s")
         # the texture and PianoTree conditions, on the same songs and chd8bar.pt
         write_condition_encoders(os.path.join(work, "pretrained"), seed=6)
         check_conditions_against_cpu(work)
@@ -4501,6 +4702,9 @@ def main() -> int:
     def maintenance_launches(name):  # the [maintenance] paths that launch the kernel
         return {path: n[name] for path, n in maintenance.items() if n[name]}
 
+    def parallel_launches(name):  # the [parallel] paths that launch the kernel
+        return {path: n[name] for path, n in parallel.items() if n[name]}
+
     fwd_bf16 = [r for r in rows if r["shape"].endswith("bfloat16")]
     bf16 = [r for r in bwd_rows if r["shape"].endswith("bfloat16")]
     hm_bf16 = [r for r in hm_rows if r["shape"].endswith("bfloat16")]
@@ -4521,7 +4725,8 @@ def main() -> int:
                **{f"sampling_{name}": n["packed_attention"] for name, n in students.items()},
                **{f"concat_{name}": n["packed_attention"] for name, n in concat.items()},
                **serving_launches("packed_attention"),
-               **maintenance_launches("packed_attention")},
+               **maintenance_launches("packed_attention"),
+               **parallel_launches("packed_attention")},
               rows, rows[0], fwd_bf16),
         # B=16 T=1024 bf16: the train step's dominant shape
         entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
@@ -4534,7 +4739,8 @@ def main() -> int:
                "distill_cli_chain": distill["cli_chain"]["packed_attention_bwd"],
                "concat_training": concat["training"]["packed_attention_bwd"],
                **serving_launches("packed_attention_bwd"),
-               **maintenance_launches("packed_attention_bwd")},
+               **maintenance_launches("packed_attention_bwd"),
+               **parallel_launches("packed_attention_bwd")},
               bwd_rows, bf16[0], bf16),
         # BH=512 T=1024 D=64 bf16: a batch-128 level-2 self-attention in head-major
         # form; on no model path, driven directly
@@ -4549,7 +4755,8 @@ def main() -> int:
                "distill_cli": distill["cli"]["gn_bwd"],
                "distill_cli_chain": distill["cli_chain"]["gn_bwd"],
                "concat_training": concat["training"]["gn_bwd"], **family,
-               **serving_launches("gn_bwd"), **maintenance_launches("gn_bwd")},
+               **serving_launches("gn_bwd"), **maintenance_launches("gn_bwd"),
+               **parallel_launches("gn_bwd")},
               gn_rows, gn_rows[0], gn_rows),
         # B=2 2x128x128 fp32: request A's sampler batch
         entry("repaint_epilogue", "polyffusion_tpu_torch/ops/csrc/repaint_epilogue.cu",

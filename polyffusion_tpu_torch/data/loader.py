@@ -5,7 +5,9 @@ Replaces the reference's torch DataLoader + collate_fn (``data/dataloader.py:25-
 per-batch random pitch shift in [-6, 6), chord (32,14) -> one-hot (32,36). A
 background thread collates the next batches, compresses them to small integer
 dtypes, pins them and starts their copies to the card (``non_blocking``) while
-the card runs the current step.
+the card runs the current step. Under data parallelism every rank iterates the
+same seeded loader (the same global batches, the same pitch shifts) and keeps
+its rows (``parallel.mesh.shard_batch``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import shard_batch
 from ..utils.reprs import chd_pitch_shift, chd_to_onehot, pianotree_pitch_shift, pr_mat_pitch_shift
 from .dataset import SegmentDataset
 
@@ -122,13 +125,18 @@ class DeviceFeeder:
     actually reads (``task.used_batch_fields``).  Unused fields are replaced
     with (B, 1) zero placeholders before the copy — for a chord-conditioned
     sdf run this cuts the per-step host-to-device traffic about fourfold.
+
+    ``mesh``: keep this rank's rows of each global batch (dp; every rank of a
+    tp group keeps the same rows).
     """
 
-    def __init__(self, loader, device: DeviceLike = None, prefetch: int = 2, used_fields=None):
+    def __init__(self, loader, device: DeviceLike = None, prefetch: int = 2, used_fields=None,
+                 mesh=None):
         self.loader = loader
         self.device = resolve_device(device)
         self.prefetch = prefetch
         self.used_fields = set(used_fields) if used_fields is not None else None
+        self.mesh = mesh
 
     def _strip(self, batch: Batch) -> Batch:
         if self.used_fields is None:
@@ -171,6 +179,8 @@ class DeviceFeeder:
         return Batch(*[pack(n, v) for n, v in zip(Batch._fields, batch)])
 
     def _place(self, batch: Batch) -> Batch:
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
         tensors = [torch.from_numpy(v) for v in self._compress(self._strip(batch))]
         if self.device.type == "cuda":
             tensors = [t.pin_memory().to(self.device, non_blocking=True) for t in tensors]
@@ -227,19 +237,23 @@ def make_loaders(
     seed: int = 0,
     prefetch: int = 2,
     used_fields=None,
+    mesh=None,
 ):
     """``used_fields``: pass the task's ``used_batch_fields`` so untouched
-    Batch fields never cross to the device (see DeviceFeeder)."""
+    Batch fields never cross to the device (see DeviceFeeder). ``mesh``: each
+    rank keeps its rows of the global batches of ``batch_size``."""
     train = DeviceFeeder(
         BatchLoader(train_ds, batch_size, augment=True, shuffle=True, seed=seed),
         device,
         prefetch,
         used_fields,
+        mesh,
     )
     val = DeviceFeeder(
         BatchLoader(val_ds, batch_size, augment=False, shuffle=False, seed=seed),
         device,
         prefetch,
         used_fields,
+        mesh,
     )
     return train, val

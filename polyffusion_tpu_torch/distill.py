@@ -35,19 +35,46 @@ already), inherits ``distilled_scale`` and continues halving from the
 student's own stored ``distill_grid`` (halving grids are nested, ``G_next =
 G[1::2]``, so a freshly computed coarse grid would not be the one the student
 was trained on). Runs on the GPU unless ``--device cpu`` is given.
+
+Data-parallel as the training CLI (``main.py``): over every visible card
+that divides the batch, one process each; the config key ``fsdp: true`` (the
+teacher run's) shards each stage's student ZeRO-3 style. The frozen teacher
+is replicated on every rank and takes no gradient.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import numpy as np
 
 V_KEYS = ("v_prediction", "distill_grid", "distilled_scale")
 
 
+def _teacher_config(p, args):
+    from .config import load_params
+
+    if os.path.isdir(args.teacher):
+        return load_params(os.path.join(args.teacher, "params.yaml"))
+    if not args.model:
+        p.error("--model preset required with a reference-checkpoint --teacher")
+    return load_params(args.model)
+
+
 def main(argv=None):
+    """Distil data-parallel over the visible cards (see the module's doc)."""
+    from .parallel.mesh import launch
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    p = _parser()
+    args = p.parse_args(argv)
+    batch = args.batch_size or _teacher_config(p, args)["batch_size"]
+    return launch(distill, argv, args.device, batch, args.nproc)
+
+
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="polyffusion_tpu_torch progressive distillation")
     p.add_argument("--teacher", required=True,
                    help="run dir of the port's trainer, or a reference .pt/.ckpt of the teacher")
@@ -80,22 +107,25 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="resume interrupted stages from their checkpoints")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument("--nproc", type=int, default=None,
+                   help="processes, one dp rank each (default: every visible card that "
+                   "divides the batch on CUDA, one on the CPU; N gloo ranks with --device cpu)")
+    return p
+
+
+def distill(argv):
+    """One process's distillation: over the dp mesh of the process group
+    when there is one of several ranks (or ``fsdp`` asks for one)."""
+    p = _parser()
     args = p.parse_args(argv)
 
-    from .config import Params, load_params, save_params
-    from .data import SegmentDataset, make_loaders
-    from .diffusion.progressive import halving_grids, pad_tables, phase_tables
+    from .config import Params
+    from .diffusion.progressive import halving_grids
     from .inference import load_unet_params
     from .main import build_task
-    from .tasks.distill import DistillTask
-    from .train import Trainer
+    from .parallel.mesh import data_parallel_mesh, rank
 
-    if os.path.isdir(args.teacher):
-        cfg = load_params(os.path.join(args.teacher, "params.yaml"))
-    else:
-        if not args.model:
-            p.error("--model preset required with a reference-checkpoint --teacher")
-        cfg = load_params(args.model)
+    cfg = _teacher_config(p, args)
     # Chain mode: an already distilled v-student is the teacher. The base task
     # is the eps config (the UNet, encoders and schedule); the teacher's v
     # semantics enter through teacher_kind="v"
@@ -131,7 +161,10 @@ def main(argv=None):
         p.error(f"--pad_phase_tables {m_max} is smaller than the largest phase "
                 f"({len(grids[0]) // 2} rows)")
 
-    base = build_task(cfg, args.pretrained_dir, device=args.device, seed=args.seed)
+    def build_base():
+        return build_task(cfg, args.pretrained_dir, device=args.device, seed=args.seed)
+
+    base = build_base()
     teacher = load_unet_params(args.teacher)
 
     name = cfg.get("model_name", "sdf")
@@ -147,6 +180,23 @@ def main(argv=None):
     })
     if args.batch_size:
         run_cfg["batch_size"] = args.batch_size
+    with data_parallel_mesh(args.device, bool(run_cfg.get("fsdp", False))) as mesh:
+        return _stages(args, cfg, run_cfg, grids, m_max, chained, base, build_base, teacher,
+                       mesh, rank() == 0)
+
+
+def _stages(args, cfg, run_cfg, grids, m_max, chained, base, build_base, teacher, mesh, rank0):
+    """Stage A and the halving phases, then the run directory's metadata."""
+    from .config import Params, save_params
+    from .data import SegmentDataset, make_loaders
+    from .diffusion.progressive import pad_tables, phase_tables
+    from .parallel.mesh import barrier
+    from .tasks.distill import DistillTask
+    from .train import Trainer
+
+    def say(line):
+        if rank0:
+            print(line)
 
     use_track = [0, 1, 2]
     if args.split_file:
@@ -157,37 +207,42 @@ def main(argv=None):
         train_ds, val_ds = SegmentDataset.train_val_from_dir(args.data_dir, 0.9, use_track)
     train_dl, val_dl = make_loaders(
         train_ds, val_ds, run_cfg["batch_size"], base.device, seed=args.seed,
-        used_fields=base.used_batch_fields,
+        used_fields=base.used_batch_fields, mesh=mesh,
     )
 
     def run_stage(task, subdir, max_steps, init_params):
         """Train ``task``'s student from ``init_params``; returns a copy of its
-        fp32 masters, the next stage's teacher (not the bf16 working copy)."""
+        fp32 masters, whole, the next stage's teacher (not the bf16 working
+        copy)."""
         trainer = Trainer(task, run_cfg, os.path.join(args.output_dir, subdir),
                           max_steps=max_steps, log_every=args.log_every,
-                          save_every=args.save_every)
+                          save_every=args.save_every, mesh=mesh)
         state = trainer.fit(train_dl, val_dl, seed=args.seed, resume=args.resume,
                             init_params=init_params)
         return {k: v.detach().clone() for k, v in state.state_dict()["params"].items()}
+
+    def stage_base():
+        # a placed (sharded) student cannot be placed again: a new one a stage
+        return base if mesh is None else build_base()
 
     teacher_kind = "eps_guided"
     last_subdir = None
     if chained:
         teacher_kind = "v"  # guidance already folded: stage A is inapplicable
-        print("[distill] v-teacher: chaining stage-B phases "
-              f"({len(grids[0])} -> {len(grids[-1])} steps)")
+        say("[distill] v-teacher: chaining stage-B phases "
+            f"({len(grids[0])} -> {len(grids[-1])} steps)")
     elif not args.skip_stage_a:
-        print(f"[distill] stage A: folding CFG scale {args.guide_scale} into one pass")
-        task = DistillTask(base, teacher, args.guide_scale, "guided", teacher_kind)
+        say(f"[distill] stage A: folding CFG scale {args.guide_scale} into one pass")
+        task = DistillTask(stage_base(), teacher, args.guide_scale, "guided", teacher_kind)
         teacher = run_stage(task, "stage_a", args.stage_a_steps, teacher)
         teacher_kind, last_subdir = "v", "stage_a"
 
     final_grid = grids[-1]
     for fine in grids[:-1]:
         m_phase = len(fine) // 2
-        print(f"[distill] halving phase: {len(fine)} -> {m_phase} steps")
+        say(f"[distill] halving phase: {len(fine)} -> {m_phase} steps")
         tables, m = pad_tables(phase_tables(base.schedule, fine), m_max)
-        task = DistillTask(base, teacher, args.guide_scale, "halve", teacher_kind,
+        task = DistillTask(stage_base(), teacher, args.guide_scale, "halve", teacher_kind,
                            tables=tables, m=m)
         teacher = run_stage(task, f"phase_{m_phase}", args.phase_steps, teacher)
         teacher_kind, last_subdir = "v", f"phase_{m_phase}"
@@ -205,15 +260,17 @@ def main(argv=None):
     })
     if len(grids) > 1:
         final_cfg["distill_grid"] = [int(t) for t in final_grid]
-    save_params(final_cfg, os.path.join(args.output_dir, "params.yaml"))
-    link = os.path.join(args.output_dir, "chkpts")
-    if os.path.islink(link):
-        os.remove(link)
-    if not os.path.exists(link):
-        os.symlink(os.path.join(last_subdir, "chkpts"), link)
+    if rank0:
+        save_params(final_cfg, os.path.join(args.output_dir, "params.yaml"))
+        link = os.path.join(args.output_dir, "chkpts")
+        if os.path.islink(link):
+            os.remove(link)
+        if not os.path.exists(link):
+            os.symlink(os.path.join(last_subdir, "chkpts"), link)
+    barrier()
     grid_note = f"{len(final_grid)}-step" if len(grids) > 1 else "grid-free (stage-A)"
-    print(f"[distill] done: {grid_note} single-pass student at {args.output_dir} "
-          "(sample with --ddim --uncond_scale 1; the run dir pins its own grid)")
+    say(f"[distill] done: {grid_note} single-pass student at {args.output_dir} "
+        "(sample with --ddim --uncond_scale 1; the run dir pins its own grid)")
     return final_cfg
 
 

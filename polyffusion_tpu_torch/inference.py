@@ -46,6 +46,8 @@ from .diffusion.schedule import make_ddim_schedule
 from .models.encoders import build_frozen_encoders
 from .models.polydis import PolydisAftertouch
 from .models.unet import GN_CONV_MODES
+from .parallel.fsdp import shard_state_fsdp
+from .parallel.mesh import batch_sharded, dp_size, replicated
 from .tasks.ddpm import DDPMTask
 from .tasks.sdf import SDFTask, blurry_image
 from .utils.image import show_image
@@ -155,6 +157,17 @@ def load_unet_params(chkpt_path: str, use_ema: bool = False, prefixes=REFERENCE_
 # -- the session --------------------------------------------------------------------
 
 
+def _outside_inference_mode(apply_fn):
+    """``apply_fn`` under ``no_grad`` instead of the samplers'
+    ``inference_mode``: FSDP2's gathered weights must stay ordinary tensors."""
+
+    def apply(*args):
+        with torch.inference_mode(False), torch.no_grad():
+            return apply_fn(*args)
+
+    return apply
+
+
 class InferenceSession:
     """A task plus a sampler choice, answering generate / inpaint requests."""
 
@@ -171,16 +184,37 @@ class InferenceSession:
         repaint_n: int = 1,
         seed: int = 0,
         device: DeviceLike = None,
+        mesh=None,
+        fsdp_params: bool = False,
     ):
         """``sampler``: "ddpm" (ancestral, over all of the schedule's steps,
         with RePaint inpainting), "ddim" or "dpmpp" (DPM-Solver++ on the DDIM
         tau grid); by default "ddim" if ``use_ddim`` else "ddpm", as in the
         JAX package. ``ddim_steps``: the tau grid's size; None means the
         distilled checkpoint's own grid (``distill_grid``), on which the
-        tau-grid samplers then run exactly, or else 50."""
+        tau-grid samplers then run exactly, or else 50.
+
+        ``mesh``: a dp mesh (``parallel.make_mesh``): the requests are
+        batch-sharded over it. Every rank holds the same global inputs and
+        noise (the same seed), runs the net on its rows of each evaluation's
+        batch and gathers the rest, so ``predict`` returns the whole batch on
+        every rank; the batch must divide the mesh size. ``fsdp_params``:
+        with ``mesh``, the UNet's weights are ZeRO-3 sharded over dp
+        (``parallel.fsdp.shard_state_fsdp``, each block gathered for its
+        forward and freed after it) instead of replicated."""
         self.device = resolve_device(device)
         if self.device != task.device:
             raise ValueError(f"task lies on {task.device}, session asked for {self.device}")
+        if fsdp_params and mesh is None:
+            raise ValueError("fsdp_params=True needs a dp mesh (parallel.make_mesh)")
+        self.mesh = mesh
+        self.apply_eps = task.apply_eps
+        if mesh is not None:
+            replicated(task.unet)
+            if fsdp_params:
+                shard_state_fsdp(task.unet, mesh)
+                self.apply_eps = _outside_inference_mode(self.apply_eps)
+            self.apply_eps = batch_sharded(self.apply_eps, mesh)
         if sampler is None:
             sampler = "ddim" if use_ddim else "ddpm"
         if sampler not in SAMPLERS:
@@ -232,6 +266,11 @@ class InferenceSession:
         )
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
+    def _check_batch(self, b: int) -> None:
+        n = dp_size(self.mesh)
+        if b % n:
+            raise ValueError(f"batch {b} must divide over the mesh's {n} dp ranks")
+
     @property
     def t_idx(self) -> int:
         return (self.ddim.n_steps if self.use_ddim else self.schedule.n_steps) - 1
@@ -259,13 +298,13 @@ class InferenceSession:
         common = dict(orig=orig, mask=mask, uncond_scale=uncond_scale, uncond_cond=uncond_cond,
                       cond_concat=self._cond_concat_of(orig))
         if self.sampler_kind == "dpmpp":
-            return S.dpmpp_paint(self.task.apply_eps, self.ddim, x, cond, self.t_idx,
+            return S.dpmpp_paint(self.apply_eps, self.ddim, x, cond, self.t_idx,
                                  self.generator, orig_noise=orig_noise, order=self.dpm_order,
                                  **common)
         if self.sampler_kind == "ddim":
-            return S.ddim_paint(self.task.apply_eps, self.ddim, x, cond, self.t_idx,
+            return S.ddim_paint(self.apply_eps, self.ddim, x, cond, self.t_idx,
                                 self.generator, orig_noise=orig_noise, **common)
-        return S.ddpm_paint(self.task.apply_eps, self.schedule, x, cond, self.t_idx,
+        return S.ddpm_paint(self.apply_eps, self.schedule, x, cond, self.t_idx,
                             self.generator, repaint_n=self.repaint_n, **common)
 
     def predict(
@@ -311,6 +350,7 @@ class InferenceSession:
 
         cond = self._tensor(cond)
         b = cond.shape[0]
+        self._check_batch(b)
         h, w, c = self.cfg.img_h, self.cfg.img_w, self.cfg.out_channels
         uncond_cond = -torch.ones_like(cond)
         if orig is None or mask is None:
@@ -337,6 +377,7 @@ class InferenceSession:
         the one pull at the end. Returns (P, 2B, C, H/2, W)."""
         conds, cond_mids = self._tensor(conds), self._tensor(cond_mids)
         p, b = conds.shape[:2]
+        self._check_batch(p)
         h, w, c = self.cfg.img_h, self.cfg.img_w, self.cfg.out_channels
         half = h // 2
         if origs is None or masks is None:

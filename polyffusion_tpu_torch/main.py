@@ -16,12 +16,22 @@ become teacher-forcing schedules; ``remat`` (sdf presets) recomputes the
 UNet's activations in the backward, ``legacy_checkpoints`` also writes the
 reference learner's ``weights.pt``. ``--profile_steps START,STOP`` traces a
 window of steps. Training runs on the GPU unless ``--device cpu`` is given.
+
+On CUDA it trains data-parallel over every visible card, dropping to the
+largest count that divides the batch size, one process per card (NCCL); on
+one card, or with ``--device cuda:<i>``, it runs in this process.
+``--nproc N`` asks for N processes: N cards, or N gloo ranks with ``--device
+cpu``. ``--fsdp`` (or the config key ``fsdp: true``) shards the train state
+ZeRO-3 style over the ranks (``parallel/fsdp.py``; in one process a one-rank
+group). The body of each process is ``train(argv)``, which also runs inside
+a caller's process group.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from datetime import datetime
 
 import torch
@@ -31,6 +41,7 @@ from .config import load_params
 from .data import SegmentDataset, make_loaders
 from .device import DeviceLike
 from .models.encoders import build_frozen_encoders
+from .parallel.mesh import data_parallel_mesh, dp_size, from_rank0, launch
 from .tasks import AutoencoderTask, Chd8BarTask, DDPMTask, PnoTreeVAETask, SDFTask
 from .train import Trainer
 from .train.schedulers import make_param_scheduler
@@ -62,7 +73,9 @@ def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 
     return OTHER_TASKS[model_name](cfg, device=device, generator=generator)
 
 
-def main(argv=None):
+def _parse(argv):
+    """The arguments, the config (preset, ``--set``s, ``--batch_size``,
+    ``--fsdp``) and the profile window."""
     p = argparse.ArgumentParser(description="polyffusion_tpu_torch training")
     p.add_argument("--model", required=True, help="params preset name (see params/)")
     p.add_argument("--output_dir", required=True)
@@ -80,8 +93,13 @@ def main(argv=None):
                    help="checkpoint every N epochs (final epoch always saves)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--resume", action="store_true", help="resume from output_dir/chkpts")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3 state sharding over dp (parallel/fsdp.py)")
     p.add_argument("--fresh", action="store_true", help="force a new timestamped subdir")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument("--nproc", type=int, default=None,
+                   help="processes, one dp rank each (default: every visible card that "
+                   "divides the batch on CUDA, one on the CPU; N gloo ranks with --device cpu)")
     p.add_argument("--gn_conv", default="unfused", choices=["unfused", "fused"],
                    help="the UNet's GroupNorm-SiLU-conv3x3 sites: as three modules or through "
                    "the fused kernel (whose backward recomputes through its plain version); "
@@ -113,12 +131,36 @@ def main(argv=None):
         cfg[key.strip()] = yaml.safe_load(val)
     if args.batch_size:
         cfg["batch_size"] = args.batch_size
+    if args.fsdp:
+        cfg["fsdp"] = True
+    return args, cfg, profile_steps
 
+
+def main(argv=None):
+    """Train data-parallel over the visible cards (see the module's doc)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args, cfg, _ = _parse(argv)
+    return launch(train, argv, args.device, cfg["batch_size"], args.nproc)
+
+
+def train(argv):
+    """One process's training: over the dp mesh of the process group when
+    there is one of several ranks (or ``fsdp`` asks for one)."""
+    args, cfg, profile_steps = _parse(argv)
+    with data_parallel_mesh(args.device, bool(cfg.get("fsdp", False))) as mesh:
+        return _train(args, cfg, profile_steps, mesh)
+
+
+def _train(args, cfg, profile_steps, mesh):
+    if cfg["batch_size"] % dp_size(mesh):
+        raise ValueError(f"batch_size {cfg['batch_size']} does not divide over "
+                         f"{dp_size(mesh)} dp ranks")
     output_dir = args.output_dir
     has_ckpt = os.path.isdir(os.path.join(output_dir, "chkpts"))
     if args.fresh or (has_ckpt and not args.resume):
         # a new timestamped dir unless --resume (the reference prompts instead)
         output_dir = os.path.join(args.output_dir, datetime.now().strftime("%y%m%d_%H%M%S"))
+    output_dir = from_rank0(output_dir)  # one run directory for every rank
 
     use_track = [int(t) for t in args.pop909_use_track.split(",")]
     if args.split_file:
@@ -132,13 +174,15 @@ def main(argv=None):
                       gn_conv=args.gn_conv)
     train_dl, val_dl = make_loaders(
         train_ds, val_ds, cfg["batch_size"], task.device, seed=args.seed,
-        used_fields=task.used_batch_fields,
+        used_fields=task.used_batch_fields, mesh=mesh,
     )
     trainer = Trainer(task, cfg, output_dir, max_steps=args.max_steps,
                       log_every=args.log_every, save_every=args.save_every,
-                      param_scheduler=make_param_scheduler(cfg), profile_steps=profile_steps)
-    print(f"[train] model={args.model} device={task.device} batch={cfg['batch_size']} "
-          f"out={output_dir}")
+                      param_scheduler=make_param_scheduler(cfg), profile_steps=profile_steps,
+                      mesh=mesh)
+    if trainer.rank0:
+        print(f"[train] model={args.model} device={task.device} devices={dp_size(mesh)} "
+              f"batch={cfg['batch_size']} fsdp={trainer.fsdp} out={output_dir}")
     return trainer.fit(train_dl, val_dl, seed=args.seed, resume=args.resume)
 
 

@@ -16,8 +16,11 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum
 
 DiscFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -25,9 +28,15 @@ DiscFn = Callable[[torch.Tensor], torch.Tensor]
 class TrainModeBatchNorm(nn.Module):
     """Batch-statistics normalisation with a learned scale and bias, in fp32:
     what ``nn.BatchNorm2d`` computes in training mode, without running
-    averages (the discriminator only trains), so ``.eval()`` changes nothing."""
+    averages (the discriminator only trains), so ``.eval()`` changes nothing.
+
+    ``batch_group``: under data parallelism (``parallel.mesh.set_batch_group``)
+    the statistics are those of the global batch, as GSPMD computes them on a
+    dp-sharded batch: the sums are summed over the group, their gradients too
+    (``SyncBatchNorm``'s scheme)."""
 
     keep_fp32 = True  # a bf16 model keeps the scale and bias fp32 (utils/precision.py)
+    batch_group = None
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -36,8 +45,15 @@ class TrainModeBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.float(), None, None, self.weight.float(), self.bias.float(),
-                         training=True, eps=self.eps)
+        xf = x.float()
+        dims = (0, 2, 3)
+        group = self.batch_group
+        count = xf.numel() // xf.shape[1] * (1 if group is None else dist.get_world_size(group))
+        mean = all_reduce_sum(xf.sum(dims), group) / count
+        centred = xf - mean[None, :, None, None]
+        var = all_reduce_sum(centred.square().sum(dims), group) / count
+        y = centred * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = y * self.weight.float()[None, :, None, None] + self.bias.float()[None, :, None, None]
         return y.to(x.dtype)
 
 

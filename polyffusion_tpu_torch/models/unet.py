@@ -1,6 +1,12 @@
 """Stable-Diffusion-style conditional UNet (counterpart of ``polyffusion_tpu/models/unet.py``,
 without its space-to-depth, XLA-int8 and ``cfg_fork`` branches).
 
+Under tensor parallelism ``parallel/tp.py:shard_state`` replaces the
+ResBlocks' convs, time-embedding projections and out-norms, the attention
+projections and the GeGLU feed-forward with its column- and row-parallel
+modules (same parameter names, full shapes in the state dict); the blocks'
+forwards here run unchanged on them.
+
 NCHW inside. The module tree and parameter names are the reference torch
 UNet's (``time_embed.0``, ``input_blocks.1.0.in_layers.0``, ``emb_layers.1``,
 ``out_layers.3``, ``transformer_blocks.0.attn1.to_q``, ``ff.net.0.proj``, ...),
@@ -178,11 +184,13 @@ class CrossAttention(nn.Module):
         cond = x if cond is None else cond
         b, s, _ = x.shape
         t = cond.shape[1]
-        q = self.to_q(x).view(b, s, self.n_heads, self.d_head)
-        k = self.to_k(cond).view(b, t, self.n_heads, self.d_head)
-        v = self.to_v(cond).view(b, t, self.n_heads, self.d_head)
+        # the heads of the projections' width: all of them, or this rank's
+        # under tensor parallelism (parallel/tp.py)
+        q = self.to_q(x).view(b, s, -1, self.d_head)
+        k = self.to_k(cond).view(b, t, -1, self.d_head)
+        v = self.to_v(cond).view(b, t, -1, self.d_head)
         out = multihead_attention(q, k, v, self.d_head**-0.5).to(x.dtype)
-        return self.to_out(out.reshape(b, s, self.n_heads * self.d_head))
+        return self.to_out(out.reshape(b, s, -1))
 
 
 class GeGLU(nn.Module):

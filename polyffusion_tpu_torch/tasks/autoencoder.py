@@ -17,6 +17,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -32,6 +33,7 @@ from ..models.losses import (
 )
 from ..models.lpips import LPIPS, lpips_state_from_torch
 from ..models.unet import init_weights_
+from ..parallel.mesh import all_reduce_mean_
 from ..utils.precision import cast_sampling_params
 
 
@@ -43,6 +45,8 @@ class AENoise(NamedTuple):
     eps: torch.Tensor
     global_step: float
 
+    ROWS = ("eps",)  # per-row draws (a dp rank keeps its rows: parallel/mesh.py)
+
 
 class AutoencoderModel(nn.Module):
     """The task's trainable module: the autoencoder, the discriminator and
@@ -50,6 +54,9 @@ class AutoencoderModel(nn.Module):
     ``logvar``; reference ``contperceptual.py`` keeps ``logvar``)."""
 
     keep_fp32 = True  # its own parameter, logvar, stays fp32 in a bf16 model
+    # under data parallelism the adaptive weight is the global batch's
+    # (``parallel.mesh.set_batch_group``)
+    batch_group = None
 
     def __init__(self, ae: Autoencoder, disc: NLayerDiscriminator):
         super().__init__()
@@ -142,6 +149,10 @@ class AutoencoderTask:
         g = -torch.mean(self._frozen_disc(recon))
         (nll_grad,) = torch.autograd.grad(nll, last, retain_graph=True)
         (g_grad,) = torch.autograd.grad(g, last, retain_graph=True)
+        group = self.model.batch_group
+        if group is not None:
+            # the gradients of the global batch's mean terms
+            all_reduce_mean_([nll_grad, g_grad], group, dist.get_world_size(group))
         return adaptive_disc_weight(nll_grad, g_grad, self.disc_weight)
 
     def loss_fn(self, batch, noise: AENoise) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -28,6 +28,8 @@ class ChordNoise(NamedTuple):
     z: torch.Tensor
     tf: torch.Tensor
 
+    ROWS = ("z",)  # per-row draws (a dp rank keeps its rows: parallel/mesh.py)
+
 
 class Chd8BarTask:
     name = "chd_8bar"

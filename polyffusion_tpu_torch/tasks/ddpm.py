@@ -25,6 +25,8 @@ class DDPMNoise(NamedTuple):
     t: torch.Tensor
     noise: torch.Tensor
 
+    ROWS = ("t", "noise")  # per-row draws (a dp rank keeps its rows: parallel/mesh.py)
+
 
 class DDPMTask:
     name = "ddpm"

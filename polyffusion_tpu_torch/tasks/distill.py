@@ -48,6 +48,8 @@ class DistillNoise(NamedTuple):
     index: torch.Tensor
     noise: torch.Tensor
 
+    ROWS = ("index", "noise")  # per-row draws (a dp rank keeps its rows: parallel/mesh.py)
+
 
 def _b(v: torch.Tensor) -> torch.Tensor:
     """(B,) -> (B, 1, 1, 1)."""
@@ -67,6 +69,7 @@ class DistillTask:
     them by default)."""
 
     name = "distill"
+    has_frozen = True  # a frozen teacher rides every step (JAX's frozen-teacher tasks)
 
     def __init__(self, base: SDFTask, teacher_state: Mapping[str, torch.Tensor],
                  guide_scale: float, mode: str, teacher_kind: str = "eps_guided",

@@ -37,6 +37,8 @@ class PianoTreeNoise(NamedTuple):
     tf1: torch.Tensor
     tf2: torch.Tensor
 
+    ROWS = ("z",)  # per-row draws, segment-major (a dp rank keeps its rows: parallel/mesh.py)
+
 
 class PnoTreeVAETask:
     name = "pnotree_vae"

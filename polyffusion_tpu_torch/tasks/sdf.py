@@ -71,6 +71,8 @@ class StepNoise(NamedTuple):
     drop_chd: Optional[torch.Tensor] = None
     drop_txt: Optional[torch.Tensor] = None
 
+    ROWS = ("t", "noise")  # per-row draws (a dp rank keeps its rows: parallel/mesh.py)
+
 
 def _dropped(cond: torch.Tensor, coin: Optional[torch.Tensor]) -> torch.Tensor:
     """-1s where ``coin`` (a 0-d bool tensor) is true, chosen on the device."""

@@ -1,5 +1,5 @@
 """The training loop: run-directory lifecycle, epochs, validation, checkpoints
-(counterpart of ``polyffusion_tpu/train/loop.py``, one device).
+(counterpart of ``polyffusion_tpu/train/loop.py``).
 
 - run dir with ``params.yaml`` and a drift warning on resume;
 - ``torch.save`` checkpoints under ``chkpts/``: the best ``keep_checkpoints`` by
@@ -16,7 +16,14 @@
   ``weights_best.pt`` and ``info.txt`` (reference ``learner.py:104-124``);
 - ``profile_steps`` (START, STOP): a ``torch.profiler`` window over those
   steps, written as a Chrome trace under ``<output_dir>/profile/`` once it
-  closes.
+  closes;
+- on a mesh (``parallel/``): the state placed by the policy (replicated over
+  dp, or ZeRO-3 sharded with the ``fsdp`` config key, or the tp layout on a
+  tp mesh). Every rank computes; only rank 0 writes the metrics log,
+  ``params.yaml``, the checkpoints and the legacy mirror, the others wait at
+  a barrier after each save. A checkpoint holds every tensor whole, so a
+  run directory of any placement is a one-process one; ``--resume`` loads it
+  into the placed state.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import yaml
 
 from ..config import Params, params_differ, save_params
 from ..models.unet import UNetModel
+from ..parallel.mesh import barrier, rank
 from .state import TrainState, create_state, param_count
 from .step import make_eval_step, make_train_step
 
@@ -61,6 +69,7 @@ class Trainer:
         save_every: int = 1,
         param_scheduler=None,
         profile_steps: Optional[Tuple[int, int]] = None,
+        mesh=None,
     ):
         """``task`` must hold fp32 weights (built with ``training=True``); the
         trainer trains ``task.model``, in bf16 over fp32 masters where
@@ -69,7 +78,9 @@ class Trainer:
         saves). ``param_scheduler``: a ``train.schedulers.ParameterScheduler``
         or None. ``profile_steps``: (START, STOP), the steps traced with
         ``torch.profiler`` (steps START to STOP - 1, counted from 0 as the
-        checkpoints count them)."""
+        checkpoints count them; traced on rank 0). ``mesh``: the dp (or dp x
+        tp) mesh the state is placed on; the config key ``fsdp: true`` shards
+        it ZeRO-3 style over dp, and needs a mesh (a one-rank one will do)."""
         self.task = task
         self.cfg = cfg
         self.param_scheduler = param_scheduler
@@ -79,26 +90,33 @@ class Trainer:
         self.save_every = max(1, int(save_every))
         if profile_steps is not None and not 0 <= profile_steps[0] < profile_steps[1]:
             raise ValueError(f"profile_steps {profile_steps}: need 0 <= START < STOP")
-        self.profile_steps = profile_steps
+        self.mesh = mesh
+        self.rank0 = rank() == 0
+        self.profile_steps = profile_steps if self.rank0 else None
         self._profiler = None
+        # ZeRO-3 state sharding over dp (parallel/fsdp.py); config: fsdp: true
+        self.fsdp = bool(cfg.get("fsdp", False))
+        if self.fsdp and mesh is None:
+            raise ValueError("fsdp: true needs a dp mesh (parallel.make_mesh; the training "
+                             "CLI makes one): it is never ignored")
 
-        os.makedirs(output_dir, exist_ok=True)
         self.output_dir = output_dir
         self.ckpt_dir = os.path.join(output_dir, "chkpts")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
-
-        params_path = os.path.join(output_dir, "params.yaml")
-        if os.path.exists(params_path):
-            with open(params_path) as f:
-                old = yaml.safe_load(f)
-            for key, old_v, new_v in params_differ(old, cfg):
-                print(f"[params drift] {key}: saved={old_v!r} current={new_v!r}")
-        save_params(cfg, params_path)
+        if self.rank0:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            params_path = os.path.join(output_dir, "params.yaml")
+            if os.path.exists(params_path):
+                with open(params_path) as f:
+                    old = yaml.safe_load(f)
+                for key, old_v, new_v in params_differ(old, cfg):
+                    print(f"[params drift] {key}: saved={old_v!r} current={new_v!r}")
+            save_params(cfg, params_path)
 
         # optional parameter EMA (config: ema_decay, e.g. 0.9999)
         self.ema_decay = cfg.get("ema_decay", None)
-        self.train_step = make_train_step(task, ema_decay=self.ema_decay)
-        self.eval_step = make_eval_step(task)
+        self.train_step = make_train_step(task, ema_decay=self.ema_decay, mesh=mesh,
+                                          fsdp=self.fsdp)
+        self.eval_step = make_eval_step(task, mesh=mesh, fsdp=self.fsdp)
         # the reference learner's checkpoints beside the port's (JAX
         # train/loop.py:128-180); the best val loss of this process decides
         # weights_best.pt, as in JAX
@@ -122,15 +140,22 @@ class Trainer:
     def save(self, state: TrainState, val_loss: float, epoch: int = 0) -> None:
         """Rolling ``last.pt``, and ``step_<n>.pt`` if it is among the best
         ``keep_checkpoints`` val losses (a worse one is not kept); with
-        ``legacy_checkpoints``, the reference learner's files too."""
+        ``legacy_checkpoints``, the reference learner's files too. Every rank
+        gathers the state; rank 0 writes, the others wait."""
         ckpt = {**state.state_dict(), "val_loss": float(val_loss)}
+        if self.rank0:
+            self._save(ckpt, epoch)
+        barrier()
+
+    def _save(self, ckpt: Dict, epoch: int) -> None:
+        step, val_loss = ckpt["step"], ckpt["val_loss"]
         self._write(ckpt, "last.pt")
-        best = [e for e in self._best_index() if e["step"] != state.step]
-        best.append({"step": state.step, "val_loss": float(val_loss)})
+        best = [e for e in self._best_index() if e["step"] != step]
+        best.append({"step": step, "val_loss": val_loss})
         best.sort(key=lambda e: (e["val_loss"], -e["step"]))
         keep, drop = best[: self.keep_checkpoints], best[self.keep_checkpoints:]
-        if any(e["step"] == state.step for e in keep):
-            self._write(ckpt, f"step_{state.step}.pt")
+        if any(e["step"] == step for e in keep):
+            self._write(ckpt, f"step_{step}.pt")
         for e in drop:
             path = os.path.join(self.ckpt_dir, f"step_{e['step']}.pt")
             if os.path.exists(path):
@@ -140,11 +165,11 @@ class Trainer:
         os.replace(os.path.join(self.ckpt_dir, "best.json.tmp"),
                    os.path.join(self.ckpt_dir, "best.json"))
         if self.legacy_ckpt:
-            self._save_legacy(state, val_loss, epoch)
+            self._save_legacy(ckpt, val_loss, epoch)
 
-    def _save_legacy(self, state: TrainState, val_loss: float, epoch: int) -> None:
-        """``weights.pt`` = the reference learner's checkpoint of the fp32
-        masters and Adam state (``convert.torch_export.export_learner_checkpoint``);
+    def _save_legacy(self, ckpt: Dict, val_loss: float, epoch: int) -> None:
+        """From the gathered checkpoint ``ckpt``: ``weights.pt`` = the
+        reference learner's checkpoint of the fp32 masters and Adam state (``convert.torch_export.export_learner_checkpoint``);
         on a new best val loss also ``weights_best.pt`` and ``info.txt``
         (reference ``learner.write_epoch_info``, learner.py:108-111). The
         layout holds the sdf UNet only: another task prints that it skipped."""
@@ -160,13 +185,13 @@ class Trainer:
         is_best = val_loss < self._best_val
         kwargs = dict(
             schedule=self.task.schedule,
-            opt_state=state.optimizer.state_dict(),
-            step=state.step,
+            opt_state=ckpt["opt_state"],
+            step=ckpt["step"],
             epoch=epoch,
             learning_rate=float(self.cfg.learning_rate),
             fp16=False,
         )
-        params = state.params()
+        params = ckpt["params"]
         export_learner_checkpoint(params, os.path.join(self.ckpt_dir, "weights.pt"), **kwargs)
         if is_best:
             self._best_val = val_loss
@@ -184,7 +209,7 @@ class Trainer:
         if not os.path.exists(path):
             return state
         state.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
-        print(f"[resume] restored checkpoint at step {state.step}")
+        self._print(f"[resume] restored checkpoint at step {state.step}")
         return state
 
     # -- the loop ---------------------------------------------------------------
@@ -204,18 +229,30 @@ class Trainer:
             cfg.get("max_grad_norm", 10.0),
             bf16=self.task.bf16,
             ema_decay=self.ema_decay,
+            mesh=self.mesh,
+            fsdp=self.fsdp,
         )
-        print(f"[model] {param_count(self.task.model) / 1e6:.2f}M trainable params")
+        self._print(f"[model] {param_count(self.task.model) / 1e6:.2f}M trainable params")
         if resume:
             state = self.try_restore(state)
-        logger = MetricsLogger(self.output_dir)
+        logger = MetricsLogger(self.output_dir) if self.rank0 else None
         try:
             self._fit(state, train_dl, val_dl, seed, logger)
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
         return state
 
-    def _fit(self, state: TrainState, train_dl, val_dl, seed: int, logger: MetricsLogger) -> None:
+    def _print(self, line: str) -> None:
+        if self.rank0:
+            print(line)
+
+    def _log(self, logger: Optional[MetricsLogger], record: Dict) -> None:
+        if logger is not None:
+            logger.log(record)
+
+    def _fit(self, state: TrainState, train_dl, val_dl, seed: int,
+             logger: Optional[MetricsLogger]) -> None:
         max_epoch = int(self.cfg.get("max_epoch", 1))
         done = False
         window_t0, window_step0 = time.perf_counter(), state.step
@@ -244,10 +281,10 @@ class Trainer:
                     now = time.perf_counter()
                     sps = (state.step - window_step0) / max(now - window_t0, 1e-9)
                     window_t0, window_step0 = now, state.step
-                    print(f"epoch {epoch} step {state.step} loss {metrics['loss']:.5f} "
-                          f"({sps:.2f} it/s)")
-                    logger.log({"step": state.step, "epoch": epoch, "steps_per_sec": sps,
-                                **{f"train/{k}": v for k, v in metrics.items()}})
+                    self._print(f"epoch {epoch} step {state.step} loss {metrics['loss']:.5f} "
+                                f"({sps:.2f} it/s)")
+                    self._log(logger, {"step": state.step, "epoch": epoch, "steps_per_sec": sps,
+                                       **{f"train/{k}": v for k, v in metrics.items()}})
                 if self.max_steps is not None and state.step >= self.max_steps:
                     done = True
                     break
@@ -285,7 +322,8 @@ class Trainer:
     def _sched(self, step: int) -> Optional[Dict[str, float]]:
         return None if self.param_scheduler is None else self.param_scheduler.step(step)
 
-    def validate(self, state: TrainState, val_dl, epoch: int, logger: MetricsLogger) -> float:
+    def validate(self, state: TrainState, val_dl, epoch: int,
+                 logger: Optional[MetricsLogger]) -> float:
         if self.param_scheduler is not None:
             self.param_scheduler.eval()
         sched = self._sched(state.step)
@@ -299,6 +337,7 @@ class Trainer:
             # empty val split: a large sentinel that stays JSON-serializable
             return 1e30
         mean = {k: v / n for k, v in agg.items()}
-        print(f"epoch {epoch} val loss {mean['loss']:.5f}")
-        logger.log({"step": state.step, "epoch": epoch, **{f"val/{k}": v for k, v in mean.items()}})
+        self._print(f"epoch {epoch} val loss {mean['loss']:.5f}")
+        self._log(logger, {"step": state.step, "epoch": epoch,
+                           **{f"val/{k}": v for k, v in mean.items()}})
         return mean["loss"]

@@ -16,23 +16,42 @@ from typing import List
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..models.unet import GroupNorm32
 
 NORM_TYPES = (GroupNorm32, nn.GroupNorm, nn.LayerNorm)
 
 
-def cast_sampling_params(module: nn.Module) -> nn.Module:
-    """In place: every floating-point parameter to bf16, except those of norm
-    modules and of modules whose ``keep_fp32`` is true (the discriminator's
-    batch norms, the autoencoder's ``logvar``: parameters the JAX package uses
-    uncast), which stay fp32."""
+def keeps_fp32(mod: nn.Module) -> bool:
+    """Whether ``mod``'s own parameters stay fp32 in a bf16 model: a norm's,
+    and those of modules whose ``keep_fp32`` is true (the discriminator's
+    batch norms, the autoencoder's ``logvar``: parameters the JAX package
+    uses uncast)."""
+    return isinstance(mod, NORM_TYPES) or getattr(mod, "keep_fp32", False)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _cast(mod: nn.Module, name: str, param: nn.Parameter, dtype: torch.dtype) -> None:
+    if isinstance(param, DTensor):
+        # a DTensor's ``.data`` cannot change dtype: register a cast copy
+        mod.register_parameter(name, nn.Parameter(param.detach().to(dtype),
+                                                  requires_grad=param.requires_grad))
+    else:
+        param.data = param.data.to(dtype)
+
+
+def cast_sampling_params(module: nn.Module, skip=frozenset()) -> nn.Module:
+    """In place: every floating-point parameter to bf16, except those of the
+    modules ``keeps_fp32`` picks, which stay fp32, and those in ``skip``."""
     for mod in module.modules():
-        fp32 = isinstance(mod, NORM_TYPES) or getattr(mod, "keep_fp32", False)
-        keep = torch.float32 if fp32 else torch.bfloat16
-        for param in mod.parameters(recurse=False):
-            if param.is_floating_point():
-                param.data = param.data.to(keep)
+        keep = torch.float32 if keeps_fp32(mod) else torch.bfloat16
+        for name, param in list(mod.named_parameters(recurse=False)):
+            if param.is_floating_point() and param not in skip:
+                _cast(mod, name, param, keep)
     return module
 
 
@@ -47,9 +66,11 @@ class MasterWeights:
     at-use casts computes (``torch.autocast`` is not: it keeps its own op lists).
 
     With ``bf16=False`` the masters are the module's own parameters and
-    nothing is copied."""
+    nothing is copied. ``fsdp``: the module's DTensor parameters are FSDP2's
+    sharded ones, which are their own masters (FSDP2 casts them at each
+    gather); the others are handled as above."""
 
-    def __init__(self, module: nn.Module, bf16: bool):
+    def __init__(self, module: nn.Module, bf16: bool, fsdp: bool = False):
         for name, p in module.named_parameters():
             if p.is_floating_point() and p.dtype != torch.float32:
                 raise ValueError(f"training needs fp32 weights, {name} is {p.dtype}: build "
@@ -57,8 +78,11 @@ class MasterWeights:
         self.module = module
         self.working: List[nn.Parameter] = list(module.parameters())
         if bf16:
-            self.masters = [nn.Parameter(p.detach().clone()) for p in self.working]
-            cast_sampling_params(module)
+            own = {p for p in self.working if fsdp and isinstance(p, DTensor)}
+            self.masters = [p if p in own else nn.Parameter(p.detach().clone())
+                            for p in self.working]
+            cast_sampling_params(module, skip=own)
+            self.working = list(module.parameters())  # a cast DTensor is a new parameter
         else:
             self.masters = self.working
 
@@ -66,17 +90,20 @@ class MasterWeights:
     def shared(self) -> bool:
         return self.masters is self.working
 
+    def _pairs(self):
+        return [(m, p) for m, p in zip(self.masters, self.working) if m is not p]
+
     def zero_grad(self) -> None:
         for p in self.working:
             p.grad = None
 
     def grads_to_masters(self) -> None:
-        if not self.shared:
-            for m, p in zip(self.masters, self.working):
-                m.grad = None if p.grad is None else p.grad.float()
+        for m, p in self._pairs():
+            m.grad = None if p.grad is None else p.grad.float()
 
     @torch.no_grad()
     def refresh(self) -> None:
         """Working copy <- masters, cast to each working parameter's dtype."""
-        if not self.shared:
-            torch._foreach_copy_(self.working, self.masters)
+        pairs = self._pairs()
+        if pairs:
+            torch._foreach_copy_([_local(p) for _, p in pairs], [_local(m) for m, _ in pairs])
