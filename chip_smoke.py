@@ -33,6 +33,18 @@ after:
   eval) and two with ``gn_conv="int8"`` (kernel 5);
 - training through kernel 4: three full-width bf16 train steps at batch 16
   with ``gn_conv="fused"``, 44 kernel-4 launches a step (12 two-input);
+- the XLA int8 route and the CFG fork (``[routes]``): ``int8_conv`` at a
+  (16, 256 -> 256, 16^2) site and ``int8_concat_conv`` at a (16, 64 + 64 ->
+  64, 128^2) decoder site card vs CPU on the same fp32 inputs (codes, scales
+  and int32 sums equal, the output to two fp32 ulps; faults: one amax over the
+  batch, one weight scale over the concat's kernel), the full-width bf16
+  ``gn_conv="int8_xla"`` eps at batch 16 against the fused eps (fault: the
+  decoder concats' skip half dropped) and beside kernel 5's, the fork against
+  the double batch in fp32 at B = 4 and bf16 at B = 64 (fault: the
+  condition's halves swapped) with each form's eval time and peak memory,
+  then a DDIM-50 CFG-5 request with ``cfg_fork`` at batch 64 and one with
+  ``gn_conv="int8_xla"`` at batch 16 (550 kernel-1 launches each, no kernel
+  4 or 5);
 - training: ``polyffusion_tpu_torch.main`` on synthetic songs with a seeded
   random ``chd8bar.pt``, the same preset in bf16 at its batch 16, 30 steps with
   one validation and one checkpoint, then ``--resume`` for 6 more;
@@ -275,6 +287,14 @@ GNQ_FP32_ATOL, GNQ_FP32_RTOL = 1e-3, 1e-5
 # int8 eps against fused eps of the full-width bf16 UNet: the bound of the JAX
 # package's tests/test_int8_gn_conv.py:190
 INT8_EPS_REL = 0.05
+# [routes]: the XLA int8 route and the CFG fork. int8_conv's sites (B, C1, C2,
+# O, H = W; C2 > 0 a decoder concat) card vs CPU: equal codes and int32 sums,
+# the output the same fp32 rescale of them (two ulps); the int8_xla eps and a
+# DDIM-50 request at ROUTES_INT8_BATCH, the fork's bf16 eval and request at
+# ROUTES_FORK_BATCH
+INT8_ROUTE_SITES = [(16, 256, 0, 256, 16), (16, 64, 64, 64, 128)]
+INT8_OUT_ATOL, INT8_OUT_RTOL = 1e-30, 2**-22  # the atol only keeps 0 / 0 out
+ROUTES_INT8_BATCH, ROUTES_FORK_BATCH = 16, 64
 # Kernel 3 (head-major attention) against its plain version: kernel 1's limits.
 # Shapes (BH, T, D): the JAX package's tests', ragged T (the kernel takes any
 # T >= 1), each in fp32 and bf16; then a batch-128 level-2 / level-3
@@ -1930,6 +1950,273 @@ def drive_gn_conv_requests(counters):
                 totals[mode][name] += got[name]
         del task, session
     return totals, secs
+
+
+def int8_site(g, b, c1, c2, o, hw):
+    """Seeded fp32 inputs of an int8 site: a SiLU'd activation (item 0 three
+    times larger, so that the items' amax differ), a weight of the 3 x 3
+    conv's init scale and a bias."""
+    import torch
+
+    y = torch.randn((b, c1 + c2, hw, hw), generator=g)
+    y = y * torch.sigmoid(y)
+    y[0] *= 3.0
+    w = torch.randn((o, c1 + c2, 3, 3), generator=g) / np.sqrt(9 * (c1 + c2))
+    return y, w, torch.randn((o,), generator=g) * 0.1
+
+
+def int8_route(y, w, bias, c1, fault=False):
+    """The int8_xla route's pieces at one site: each part's activation codes
+    and scales and weight codes and scales, each part's exact int32 sums, and
+    the output (``int8_conv``, or ``int8_concat_conv`` where the site has a
+    second part). ``fault``: a single site quantizes its activation with one
+    amax over the whole batch, a concat site takes one weight scale over its
+    whole kernel."""
+    import torch
+
+    from polyffusion_tpu_torch.ops.quant import (
+        int8_concat_conv,
+        int8_conv,
+        int8_conv_sums,
+        quantize_act,
+        quantize_weight,
+    )
+
+    ys = [y] if c1 == y.shape[1] else [y[:, :c1], y[:, c1:]]
+    if len(ys) == 1:
+        parts = [quantize_weight(w)]
+    elif fault:
+        wq, ws = quantize_weight(w)
+        parts = [(wq[:, :c1], ws), (wq[:, c1:], ws)]
+    else:
+        parts = [quantize_weight(w[:, :c1]), quantize_weight(w[:, c1:])]
+    codes = [quantize_act(part) for part in ys]
+    if fault and len(ys) == 1:
+        amax = y.abs().amax().clamp(min=1e-6)
+        q = torch.clamp(torch.round(y * (127.0 / amax)), -127, 127).to(torch.int8)
+        codes = [(q, (amax / 127.0).expand(y.shape[0]))]
+    sums = [int8_conv_sums(q, wq) for (q, _), (wq, _) in zip(codes, parts)]
+    if fault and len(ys) == 1:
+        out = (sums[0].float() * codes[0][1][:, None, None, None] * parts[0][1] + bias)
+        out = out.permute(0, 3, 1, 2)
+    elif len(ys) == 1:
+        out = int8_conv(y, *parts[0], bias)
+    else:
+        out = int8_concat_conv(ys[0], ys[1], parts, bias)
+    return codes + parts, sums, out
+
+
+def check_int8_conv_card_vs_cpu():
+    """``int8_conv`` and ``int8_concat_conv`` on the card against the CPU on
+    the same fp32 inputs, at a (16, 256 -> 256, 16^2) site and a (16, 64 + 64
+    -> 64, 128^2) decoder concat site: the codes and the int32 sums equal, the
+    output within INT8_OUT_RTOL (the same fp32 rescale of the same sums);
+    each with a planted fault (``int8_route``'s) that must fail the output's
+    limit. Times the card's route against cuDNN's bf16 conv of the site.
+    Returns a row per site."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(17)
+    rows = []
+    for b, c1, c2, o, hw in INT8_ROUTE_SITES:
+        y, w, bias = int8_site(g, b, c1, c2, o, hw)
+        with torch.inference_mode():
+            want_codes, want_sums, want = int8_route(y, w, bias, c1)
+            got_codes, got_sums, got = int8_route(y.cuda(), w.cuda(), bias.cuda(), c1)
+            _, _, fault = int8_route(y.cuda(), w.cuda(), bias.cuda(), c1, fault=True)
+        code_diff = sum(int((a.cpu() != q).sum()) + int((s.cpu() != ws).sum())
+                        for (a, s), (q, ws) in zip(got_codes, want_codes))  # activations, weights
+        sum_diff = max(int((a.cpu().long() - e.long()).abs().max()) for a, e in
+                       zip(got_sums, want_sums))
+        ratio = limit_ratio(got.cpu(), want, INT8_OUT_ATOL, INT8_OUT_RTOL)
+        fault_ratio = limit_ratio(fault.cpu(), want, INT8_OUT_ATOL, INT8_OUT_RTOL)
+        shape = f"B={b} C={c1}{'+' + str(c2) if c2 else ''}->{o} {hw}x{hw}"
+        fault_name = "one weight scale over the kernel" if c2 else "one amax over the batch"
+        yc, wc, bc = y.cuda(), w.cuda(), bias.cuda()
+        yb, wb = yc.bfloat16(), wc.bfloat16()
+        with torch.inference_mode():
+            times = time_in_turns({
+                "int8": lambda: int8_route(yc, wc, bc, c1),
+                "cudnn_bf16": lambda: F.conv2d(yb, wb, padding=1),
+            }, rounds=5, inner=2)
+        log(f"[routes] int8_conv {shape} card vs CPU: codes and scales differing {code_diff} "
+            f"(activations and weights; limit 0), int32 sums max |diff| {sum_diff} (limit 0), "
+            f"output max ratio to "
+            f"{INT8_OUT_ATOL:.3g} + {INT8_OUT_RTOL:.3g} |want| {ratio:.3g} (limit 1), "
+            f"planted fault ({fault_name}) "
+            f"{fault_ratio:.3g} (must exceed 1); |sums| max "
+            f"{max(int(a.abs().max()) for a in want_sums)}; ms: int8 route {times['int8']:.4f}, "
+            f"cuDNN bf16 conv {times['cudnn_bf16']:.4f}")
+        if code_diff or sum_diff or not ratio <= 1.0 or not fault_ratio > 1.0:
+            raise AssertionError(f"int8_conv {shape} on the card disagrees with the CPU, or its "
+                                 "planted fault passed")
+        rows.append(dict(shape=shape, max_abs_err=(got.cpu() - want).abs().max().item(),
+                         ms=times["int8"], cudnn_bf16_ms=times["cudnn_bf16"]))
+    return rows
+
+
+def check_int8_xla_eps():
+    """The full-width bf16 UNet's eps at batch ROUTES_INT8_BATCH on the
+    int8_xla route against its eps through kernel 4 (``gn_conv="fused"``) at
+    ``check_int8_against_fused``'s limit, and against kernel 5's (``"int8"``,
+    printed only: the two int8 routes quantize the decoder's concat
+    differently); planted fault: the skip half of every decoder concat
+    dropped. Returns the relative errors."""
+    import torch
+
+    from polyffusion_tpu_torch.models import unet as unet_mod
+
+    cfg = full_cfg(bf16=True)
+    rng = np.random.default_rng(19)
+    b = ROUTES_INT8_BATCH
+    x = torch.from_numpy(rng.standard_normal((b, 2, 128, 128)).astype(np.float32)).cuda()
+    t = torch.from_numpy(rng.integers(0, cfg.n_steps, b)).cuda()
+    cond = torch.from_numpy(rng.standard_normal((b, 1, cfg.d_cond)).astype(np.float32)).cuda()
+    eps = {}
+    for mode in ("fused", "int8", "int8_xla"):
+        task = make_task(cfg, "cuda", seed=2, gn_conv=mode)
+        with torch.inference_mode():
+            eps[mode] = task.apply_eps(x, t, cond).float()
+            if mode == "int8_xla":
+                real = unet_mod.int8_concat_conv
+                unet_mod.int8_concat_conv = lambda y, y2, parts, bias: real(
+                    y, torch.zeros_like(y2), parts, bias)
+                try:
+                    eps["fault"] = task.apply_eps(x, t, cond).float()
+                finally:
+                    unet_mod.int8_concat_conv = real
+        del task
+
+    def rel(a, ref):
+        return ((a - ref).abs().mean() / ref.abs().mean()).item()
+
+    out = dict(vs_fused=rel(eps["int8_xla"], eps["fused"]),
+               vs_kernel5=rel(eps["int8_xla"], eps["int8"]),
+               kernel5_vs_fused=rel(eps["int8"], eps["fused"]),
+               fault_vs_fused=rel(eps["fault"], eps["fused"]))
+    log(f"[routes] full-width bf16 (B={b}) int8_xla eps vs fused eps: mean rel err "
+        f"{out['vs_fused']:.4g} (limit {INT8_EPS_REL}); planted fault (decoder concats' skip "
+        f"half dropped) {out['fault_vs_fused']:.4g} (must exceed it); vs kernel 5's eps "
+        f"{out['vs_kernel5']:.4g} (not asserted; kernel 5 vs fused {out['kernel5_vs_fused']:.4g})")
+    if not (out["vs_fused"] < INT8_EPS_REL <= out["fault_vs_fused"]
+            and torch.isfinite(eps["int8_xla"]).all()):
+        raise AssertionError("the int8_xla UNet's eps is too far from the fused one, or its "
+                             "planted fault passed")
+    return out
+
+
+def check_cfg_fork():
+    """The UNet's CFG fork against the double batch on the card: the
+    full-width fp32 UNet (TF32 off) at B = 4 at UNET_ATOL / UNET_RTOL, and the
+    bf16 one at B = ROUTES_FORK_BATCH at the bf16 limits (BF16_ATOL,
+    BF16_RTOL); planted fault for both: the fork handed the condition's
+    halves swapped. Times one bf16 eval of each form (in turns) and takes
+    each form's peak device memory above what is resident. Returns the
+    numbers."""
+    import torch
+
+    out = {}
+    for bf16, b, atol, rtol in ((False, 4, UNET_ATOL, UNET_RTOL),
+                                (True, ROUTES_FORK_BATCH, BF16_ATOL, BF16_RTOL)):
+        cfg = full_cfg(bf16=bf16)
+        task = make_task(cfg, "cuda", seed=3)
+        rng = np.random.default_rng(23)
+        x = torch.from_numpy(rng.standard_normal((b, 2, 128, 128)).astype(np.float32)).cuda()
+        t = torch.from_numpy(rng.integers(0, cfg.n_steps, b)).cuda()
+        cond = torch.from_numpy(rng.standard_normal((b, 1, cfg.d_cond)).astype(np.float32)).cuda()
+        c_in = torch.cat([-torch.ones_like(cond), cond])
+        swapped = torch.cat([cond, -torch.ones_like(cond)])
+        x2, t2 = torch.cat([x, x]), torch.cat([t, t])
+        with torch.inference_mode():
+            double = task.apply_eps(x2, t2, c_in)
+            fork = task.apply_eps(x, t, c_in, cfg_fork=True)
+            fault = task.apply_eps(x, t, swapped, cfg_fork=True)
+            ratio = limit_ratio(fork, double, atol, rtol)
+            fault_ratio = limit_ratio(fault, double, atol, rtol)
+            label = f"{'bf16' if bf16 else 'fp32'} B={b}"
+            log(f"[routes] cfg_fork {label}: fork vs double batch max ratio to the limit "
+                f"{ratio:.3g} (atol {atol:.3g}, rtol {rtol:.3g}; limit 1), max_abs_err "
+                f"{(fork - double).abs().max().item():.3g}, |double| max "
+                f"{double.abs().max().item():.3g}; planted fault (halves swapped) "
+                f"{fault_ratio:.3g} (must exceed 1)")
+            if not (ratio <= 1.0 < fault_ratio and torch.isfinite(fork).all()):
+                raise AssertionError(f"cfg_fork ({label}) disagrees with the double batch, or "
+                                     "its planted fault passed")
+            out[label] = dict(ratio=ratio, max_abs_err=(fork - double).abs().max().item())
+            if bf16:
+                forms = {"double": lambda: task.apply_eps(x2, t2, c_in),
+                         "fork": lambda: task.apply_eps(x, t, c_in, cfg_fork=True)}
+                ms = time_in_turns(forms, rounds=5, inner=2)
+                peak = {}
+                for name, fn in forms.items():
+                    torch.cuda.synchronize()
+                    resident = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    fn()
+                    torch.cuda.synchronize()
+                    peak[name] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+                log(f"[routes] cfg_fork bf16 eval at B={b} (CFG double batch {2 * b}): ms "
+                    f"double {ms['double']:.3f}, fork {ms['fork']:.3f}; peak device memory "
+                    f"above the resident GiB: double {peak['double']:.3f}, fork "
+                    f"{peak['fork']:.3f}")
+                out["eval_ms"], out["peak_gib"] = ms, peak
+        del task
+    return out
+
+
+def drive_route_requests(counters):
+    """One DDIM-50 CFG-5 request each through ``InferenceSession``: with
+    ``cfg_fork`` at batch ROUTES_FORK_BATCH and with ``gn_conv="int8_xla"``
+    at batch ROUTES_INT8_BATCH, the launch counts set to 0 just before each
+    and read just after (kernel 1 only: 550; no kernel 4 or 5). Returns the
+    launches and the seconds of each."""
+    import torch
+
+    from polyffusion_tpu_torch.inference import InferenceSession
+
+    cfg = full_cfg(bf16=True)
+    rng = np.random.default_rng(29)
+    zero = {name: 0 for name in counters}
+    want = dict(zero, packed_attention=LAUNCHES_PER_REQUEST)
+    launches, secs = {}, {}
+    for name, gn_conv, fork, b in (("cfg_fork", "unfused", True, ROUTES_FORK_BATCH),
+                                   ("int8_xla", "int8_xla", False, ROUTES_INT8_BATCH)):
+        task = make_task(cfg, None, seed=0, gn_conv=gn_conv)
+        session = InferenceSession(task, sampler="ddim", ddim_steps=50, seed=0, cfg_fork=fork)
+        chords = torch.from_numpy(random_chords(rng, b))
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = session.generate(task.encode_chord(chords), uncond_scale=5.0)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        log(f"[routes] {name} request: batch {b}, DDIM-50 CFG 5: {secs[name]:.3f} s, "
+            f"{b / secs[name]:.3f} samples/s, launches {launches[name]}")
+        if launches[name] != want:
+            raise AssertionError(f"[routes] {name}: expected launches {want}, got {launches[name]}")
+        if gen.shape != (b, 2, 128, 128) or not np.isfinite(gen).all():
+            raise AssertionError(f"[routes] {name}: bad output, shape {gen.shape}")
+        del task, session
+    return launches, secs
+
+
+def drive_routes(counters, smi):
+    """``[routes]``: the XLA int8 route and the CFG fork (``check_int8_conv_
+    card_vs_cpu``, ``check_int8_xla_eps``, ``check_cfg_fork``, then
+    ``drive_route_requests``). Returns each request's launches."""
+    t0 = time.perf_counter()
+    sites = check_int8_conv_card_vs_cpu()
+    eps = check_int8_xla_eps()
+    fork = check_cfg_fork()
+    launches, secs = drive_route_requests(counters)
+    phase = time.perf_counter() - t0
+    summary = dict(card=smi, int8_sites=sites, int8_xla_eps=eps, cfg_fork=fork,
+                   request_secs=secs, phase_s=phase)
+    log(f"[routes] summary {json.dumps(summary)}")
+    log(f"[routes] phase {phase:.3f} s")
+    return launches
 
 
 def midi_instruments(path: str) -> int:
@@ -4619,6 +4906,8 @@ def main() -> int:
     head_major = drive_head_major(counters)
     gn_conv_paths, _ = drive_gn_conv_requests(counters)
     fused_training = drive_fused_train_steps(counters)
+    # the XLA int8 route and the CFG fork
+    routes = drive_routes(counters, smi)
     with tempfile.TemporaryDirectory() as work:
         before = map_cache_counts()
         training = drive_training_path(counters, work)
@@ -4718,6 +5007,7 @@ def main() -> int:
                **{f"sampling_{name}": n["packed_attention"] for name, n in cond_requests.items()},
                "training_mix2": mix2_training["packed_attention"],
                "cli_mix2": mix2_cli["packed_attention"],
+               **{f"sampling_{name}": n["packed_attention"] for name, n in routes.items()},
                **{f"midi_{name}": n["packed_attention"] for name, n in midi_cli.items()},
                **{f"training_{name}_from_run": n["packed_attention"]
                   for name, n in from_runs.items()},

@@ -23,13 +23,22 @@ from .schedule import DDIMSchedule, NoiseSchedule
 EpsFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]  # (x NCHW, t, cond)
 
 
-def make_eps_fn(apply_fn: EpsFn, uncond_scale: float = 1.0, uncond_cond: Optional[torch.Tensor] = None):
+def make_eps_fn(apply_fn: EpsFn, uncond_scale: float = 1.0,
+                uncond_cond: Optional[torch.Tensor] = None, cfg_fork: bool = False):
     """Classifier-free-guidance epsilon ``eps(x, t, cond, cond_concat=None)``
     on NCHW ``x``. s == 1 (or no uncond condition) runs one conditional pass,
     s == 0 one unconditional pass; any other scale runs ONE double batch
     [uncond, cond] and returns e_u + s * (e_c - e_u). ``cond_concat`` (extra
     input channels, NCHW) is concatenated to the net's input on the channel
-    axis, repeated over the double batch."""
+    axis, repeated over the double batch.
+
+    ``cfg_fork`` (JAX's ``POLYFF_CFG_FORK=1``): where ``apply_fn`` advertises
+    ``supports_cfg_fork`` (``SDFTask.apply_eps``; a distilled student's
+    v-adapter does not), the double batch is forked inside the net instead:
+    ``x``, ``t`` and ``cond_concat`` at batch B, the condition at 2B, and the
+    net duplicates its activations before its first cross-attention (the
+    UNet's ``cfg_fork``). The same function up to float reassociation."""
+    fork = cfg_fork and getattr(apply_fn, "supports_cfg_fork", False)
 
     def run(x, t, cond, cond_concat):
         if cond_concat is not None:
@@ -43,7 +52,13 @@ def make_eps_fn(apply_fn: EpsFn, uncond_scale: float = 1.0, uncond_cond: Optiona
             return run(x, t, cond, cond_concat)
         if uncond_scale == 0.0:
             return run(x, t, uncond_cond, cond_concat)
-        e = run(torch.cat([x, x]), torch.cat([t, t]), torch.cat([uncond_cond, cond]), cond_concat)
+        c_in = torch.cat([uncond_cond, cond])
+        if fork:
+            if cond_concat is not None:
+                x = torch.cat([x, cond_concat.to(x.dtype)], dim=1)
+            e = apply_fn(x, t, c_in, cfg_fork=True)
+        else:
+            e = run(torch.cat([x, x]), torch.cat([t, t]), c_in, cond_concat)
         e_uncond, e_cond = e.chunk(2)
         return e_uncond + uncond_scale * (e_cond - e_uncond)
 
@@ -114,6 +129,7 @@ def ddpm_sample(
     *,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cfg_fork: bool = False,
     t_start: int = 0,
     noise_override: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -121,7 +137,8 @@ def ddpm_sample(
     and out. ``noise_override``: (S, B, H, W, C) per-step noises for replay."""
     return ddpm_paint(
         apply_fn, schedule, x_last, cond, schedule.n_steps - 1 - t_start, generator,
-        uncond_scale=uncond_scale, uncond_cond=uncond_cond, noise_override=noise_override,
+        uncond_scale=uncond_scale, uncond_cond=uncond_cond, cfg_fork=cfg_fork,
+        noise_override=noise_override,
     )
 
 
@@ -152,6 +169,7 @@ def ddpm_paint(
     mask: Optional[torch.Tensor] = None,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cfg_fork: bool = False,
     cond_concat: Optional[torch.Tensor] = None,
     repaint_n: int = 1,
     noise_override: Optional[torch.Tensor] = None,
@@ -166,7 +184,7 @@ def ddpm_paint(
     With ``orig is None`` this is plain conditional generation from ``x``.
     ``noise_override``: (S, B, H, W, C) noises when ``orig is None``, else
     (S, repaint_n, 3, B, H, W, C) noises [q, p, renoise]."""
-    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond, cfg_fork)
     cc = _nchw_or_none(cond_concat)
     steps = range(t_start, -1, -1)
     if orig is None:
@@ -209,12 +227,13 @@ def ddim_sample(
     *,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cfg_fork: bool = False,
     t_start: int = 0,
     noise_override: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """DDIM sampling over the reversed tau grid, skipping the first ``t_start``
     steps. ``noise_override``: (S, B, H, W, C) per-step noises for replay."""
-    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond, cfg_fork)
     n = dd.n_steps
     x = _nchw(x_last)
     steps = dd.time_steps[::-1][t_start:]
@@ -239,6 +258,7 @@ def ddim_paint(
     orig_noise: Optional[torch.Tensor] = None,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cfg_fork: bool = False,
     cond_concat: Optional[torch.Tensor] = None,
     noise_override: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -247,7 +267,7 @@ def ddim_paint(
     ``q_sample(orig, index)`` under the fixed ``orig_noise``. With ``orig is
     None`` this is plain conditional generation. ``cond_concat`` (NHWC): the
     net's extra input channels."""
-    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond, cfg_fork)
     cc = _nchw_or_none(cond_concat)
     xc = _nchw(x)
     masked = orig is not None
@@ -294,6 +314,7 @@ def dpmpp_paint(
     orig_noise: Optional[torch.Tensor] = None,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cfg_fork: bool = False,
     cond_concat: Optional[torch.Tensor] = None,
     order: int = 2,
 ) -> torch.Tensor:
@@ -310,7 +331,7 @@ def dpmpp_paint(
     trajectory. ``cond_concat`` (NHWC): the net's extra input channels."""
     if order not in (1, 2):
         raise ValueError(f"dpmpp order must be 1 or 2, got {order}")
-    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond)
+    eps_fn = make_eps_fn(apply_fn, uncond_scale, uncond_cond, cfg_fork)
     cc = _nchw_or_none(cond_concat)
     a_t, s_t, a_p, s_p, h_t = _dpmpp_tables(dd)
     xc = _nchw(x)
@@ -350,6 +371,7 @@ def dpmpp_sample(
     *,
     uncond_scale: float = 1.0,
     uncond_cond: Optional[torch.Tensor] = None,
+    cfg_fork: bool = False,
     t_start: int = 0,
     order: int = 2,
 ) -> torch.Tensor:
@@ -357,5 +379,5 @@ def dpmpp_sample(
     skips leading transitions as in ``ddim_sample``."""
     return dpmpp_paint(
         apply_fn, dd, x_last, cond, dd.n_steps - 1 - t_start, generator,
-        uncond_scale=uncond_scale, uncond_cond=uncond_cond, order=order,
+        uncond_scale=uncond_scale, uncond_cond=uncond_cond, cfg_fork=cfg_fork, order=order,
     )

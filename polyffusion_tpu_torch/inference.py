@@ -4,7 +4,7 @@
     python -m polyffusion_tpu_torch.inference --chkpt_path <run dir or .pt> \\
         (--data_dir <npz dir> --song_fn <song.npz> | --from_midi <song.mid>) \\
         [--inpaint_type below] [--autoreg] [--ddim | --dpmpp] [--uncond_scale 5] \\
-        [--gn_conv int8] [--polydis_recon] --output_dir gen/
+        [--gn_conv int8 | --gn_conv int8_xla] [--cfg_fork] [--polydis_recon] --output_dir gen/
 
 The sampler is DDPM (all of the schedule's steps, RePaint inpainting) unless
 ``--ddim`` or ``--dpmpp`` asks for a tau-grid one. ``predict`` keeps the JAX
@@ -19,9 +19,11 @@ request's original roll; a distilled student's run directory
 stands in for the song with ``--from_midi`` (its chords recognized,
 ``data/midi_to_data.py``), and ``--polydis_recon`` re-renders each generated
 piece through PolyDis; ``--dump_images`` writes PNGs of the song's forward
-noising and ``--bf16_params`` samples with bf16 weights. A ``ddpm`` run directory or preset takes the plain DDPM
-family's route (``generate_ddpm``): unconditional DDPM-1000, or DDIM with
-``--ddim``. Runs on the GPU unless ``--device cpu`` is given.
+noising and ``--bf16_params`` samples with bf16 weights; ``--cfg_fork`` forks
+CFG's double batch inside the UNet (``UNetModel``'s ``cfg_fork``). A ``ddpm``
+run directory or preset takes the plain DDPM family's route
+(``generate_ddpm``): unconditional DDPM-1000, or DDIM with ``--ddim``. Runs
+on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -161,10 +163,11 @@ def _outside_inference_mode(apply_fn):
     """``apply_fn`` under ``no_grad`` instead of the samplers'
     ``inference_mode``: FSDP2's gathered weights must stay ordinary tensors."""
 
-    def apply(*args):
+    def apply(*args, **kwargs):
         with torch.inference_mode(False), torch.no_grad():
-            return apply_fn(*args)
+            return apply_fn(*args, **kwargs)
 
+    apply.supports_cfg_fork = getattr(apply_fn, "supports_cfg_fork", False)
     return apply
 
 
@@ -186,6 +189,7 @@ class InferenceSession:
         device: DeviceLike = None,
         mesh=None,
         fsdp_params: bool = False,
+        cfg_fork: bool = False,
     ):
         """``sampler``: "ddpm" (ancestral, over all of the schedule's steps,
         with RePaint inpainting), "ddim" or "dpmpp" (DPM-Solver++ on the DDIM
@@ -201,13 +205,18 @@ class InferenceSession:
         every rank; the batch must divide the mesh size. ``fsdp_params``:
         with ``mesh``, the UNet's weights are ZeRO-3 sharded over dp
         (``parallel.fsdp.shard_state_fsdp``, each block gathered for its
-        forward and freed after it) instead of replicated."""
+        forward and freed after it) instead of replicated. ``cfg_fork``: every
+        sampler forks CFG's double batch inside the UNet (JAX's
+        ``POLYFF_CFG_FORK=1``; ``diffusion/sampler.py:make_eps_fn``), where
+        the task's eps advertises it (a distilled student's does not); on a
+        mesh each rank forks its own rows."""
         self.device = resolve_device(device)
         if self.device != task.device:
             raise ValueError(f"task lies on {task.device}, session asked for {self.device}")
         if fsdp_params and mesh is None:
             raise ValueError("fsdp_params=True needs a dp mesh (parallel.make_mesh)")
         self.mesh = mesh
+        self.cfg_fork = cfg_fork
         self.apply_eps = task.apply_eps
         if mesh is not None:
             replicated(task.unet)
@@ -296,7 +305,7 @@ class InferenceSession:
         known region with fresh noise at every step (it reads no
         ``orig_noise``); the tau-grid samplers with ``orig_noise``."""
         common = dict(orig=orig, mask=mask, uncond_scale=uncond_scale, uncond_cond=uncond_cond,
-                      cond_concat=self._cond_concat_of(orig))
+                      cond_concat=self._cond_concat_of(orig), cfg_fork=self.cfg_fork)
         if self.sampler_kind == "dpmpp":
             return S.dpmpp_paint(self.apply_eps, self.ddim, x, cond, self.t_idx,
                                  self.generator, orig_noise=orig_noise, order=self.dpm_order,
@@ -500,8 +509,8 @@ def build_task_for_inference(cfg: Params, pretrained_dir: Optional[str] = None,
                              bf16_params: bool = False) -> SDFTask:
     """The ``sdf*`` task of ``cfg`` with its frozen encoders from
     ``pretrained_dir``; its UNet weights come from ``load_unet_params``.
-    ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused" or
-    "int8"). ``bf16_params``: the UNet's weights cast to bf16 for sampling
+    ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused",
+    "int8" or "int8_xla"). ``bf16_params``: the UNet's weights cast to bf16 for sampling
     (``utils/precision.py:cast_sampling_params``) even for an fp32 preset.
     A ``ddpm`` config has its own route, ``generate_ddpm``."""
     if cfg.get("model_name") == "ddpm":
@@ -516,7 +525,7 @@ DDPM_UNUSED_FLAGS = {"uncond_scale": 1.0, "autoreg": False, "dpmpp": False,
                      "inpaint_type": None, "from_midi": None, "from_midi2": None,
                      "inpaint_from_midi": None, "inpaint_song_fn": None,
                      "polydis_recon": False, "split_inpaint": False, "gn_conv": "unfused",
-                     "bf16_params": False, "dump_images": False}
+                     "bf16_params": False, "dump_images": False, "cfg_fork": False}
 
 
 def generate_ddpm(cfg: Params, args) -> list:
@@ -651,7 +660,11 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     p.add_argument("--gn_conv", default="unfused", choices=list(GN_CONV_MODES),
                    help="the UNet's GroupNorm-SiLU-conv3x3 sites: as three modules, through "
-                   "the fused kernel, or through its int8 form")
+                   "the fused kernel, through its int8 form, or as three modules with the "
+                   "convs as exact int8 products (int8_xla)")
+    p.add_argument("--cfg_fork", action="store_true",
+                   help="fork CFG's double batch inside the UNet: the condition-free layers "
+                   "before its first cross-attention run once at the request's batch")
     p.add_argument("--bf16_params", action="store_true",
                    help="cast the UNet's weights to bf16 for sampling (norms stay fp32), also "
                    "for an fp32 preset")
@@ -681,6 +694,7 @@ def main(argv=None):
         repaint_n=args.repaint_n,
         seed=args.seed,
         device=args.device,
+        cfg_fork=args.cfg_fork,
     )
 
     if args.from_midi:

@@ -25,11 +25,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
 from .encoders import one_hot
 from .gru import BiGRU, gru_cell
 
 
 class PianoTreeDecoder(nn.Module):
+    # under data parallelism the reconstruction loss is the global batch's
+    # masked mean (``parallel.mesh.set_batch_group``; ``pianotree_recon_loss``)
+    batch_group = None
+
     def __init__(self, max_simu_note: int = 20, max_pitch: int = 127, min_pitch: int = 0,
                  pitch_sos: int = 128, pitch_eos: int = 129, pitch_pad: int = 130,
                  dur_width: int = 5, num_step: int = 32,
@@ -159,21 +164,27 @@ class PianoTreeDecoder(nn.Module):
         return torch.stack(pitch_outs, 1), torch.stack(dur_outs, 1)
 
 
-def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, ignore: int) -> torch.Tensor:
+def _masked_ce(logits: torch.Tensor, labels: torch.Tensor, ignore: int, group=None) -> torch.Tensor:
     """Mean CE over the labels that are not ``ignore`` (JAX's ``masked_ce``;
-    the ignored labels are gathered at 0, then masked out)."""
+    the ignored labels are gathered at 0, then masked out). ``group``: a dp
+    group over whose ranks the sum and the count are summed first, so that
+    every rank holds the global batch's mean, as GSPMD divides by the global
+    count (the identity without one)."""
     mask = labels != ignore
     ll = F.log_softmax(logits, dim=-1).gather(
         -1, torch.where(mask, labels, 0).long()[..., None])[..., 0]
-    return -(ll * mask).sum() / mask.sum().clamp(min=1)
+    total, count = all_reduce_sum(torch.stack([-(ll * mask).sum(), mask.sum().to(ll.dtype)]),
+                                  group)
+    return total / count.clamp(min=1)
 
 
 def pianotree_recon_loss(x: torch.Tensor, recon_pitch: torch.Tensor, recon_dur: torch.Tensor,
-                         weights=(1.0, 0.5), pitch_pad: int = 130, dur_pad: int = 2):
+                         weights=(1.0, 0.5), pitch_pad: int = 130, dur_pad: int = 2, group=None):
     """CE losses with pad-index masking (JAX ``pianotree_recon_loss``, reference
-    ``pianotree_dec.py:341-367``): (loss, pitch, dur)."""
-    pitch_loss = _masked_ce(recon_pitch, x[:, :, 1:, 0], pitch_pad)
-    dur_loss = _masked_ce(recon_dur, x[:, :, 1:, 1:], dur_pad)
+    ``pianotree_dec.py:341-367``): (loss, pitch, dur). ``group``: the dp group
+    of ``_masked_ce``."""
+    pitch_loss = _masked_ce(recon_pitch, x[:, :, 1:, 0], pitch_pad, group)
+    dur_loss = _masked_ce(recon_dur, x[:, :, 1:, 1:], dur_pad, group)
     return weights[0] * pitch_loss + weights[1] * dur_loss, pitch_loss, dur_loss
 
 

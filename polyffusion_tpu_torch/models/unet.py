@@ -1,5 +1,5 @@
 """Stable-Diffusion-style conditional UNet (counterpart of ``polyffusion_tpu/models/unet.py``,
-without its space-to-depth, XLA-int8 and ``cfg_fork`` branches).
+without its space-to-depth branch, ``POLYFF_S2D``).
 
 Under tensor parallelism ``parallel/tp.py:shard_state`` replaces the
 ResBlocks' convs, time-embedding projections and out-norms, the attention
@@ -22,13 +22,24 @@ sites (the JAX package's ``POLYFF_FUSED_GN_CONV`` / ``POLYFF_INT8_CONV``):
 (``ops/fused_gn_conv.py``, kernel 4) with the decoder's skip concat never built
 and the block's residual added inside the second kernel, "int8" the same with
 int8 operands (kernel 5, sampling only; ``UNetModel.prepare_gn_conv`` makes
-the int8 weights once). Parameter names and shapes are the same in every mode.
+the int8 weights once), "int8_xla" as three modules with the convolution an
+exact int8 product (JAX's ``POLYFF_INT8_XLA``: ``ops/quant.py:int8_conv``,
+per-item activation and per-channel weight scales; the decoder's concat as
+two products, each part with its own scales; sampling only, the int8 weights
+made once as for "int8"). Parameter names and shapes are the same in every
+mode.
+
+``cfg_fork`` (JAX's ``cfg_fork=True``): ``x`` and the time steps at batch B,
+the condition at 2B ([uncond | cond]); the net runs once at B up to its first
+cross-attention, then duplicates its activations, time embedding and stored
+skips and runs at 2B: the double batch of classifier-free guidance up to
+float reassociation, with the condition-free prefix computed once.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -40,11 +51,12 @@ from ..ops.fused_gn_conv import (
     gn_silu_conv3x3_concat,
     gn_silu_conv3x3_concat_q,
     gn_silu_conv3x3_q,
-    quantize_conv_kernel,
 )
 from ..ops.gn_bwd import gn_affine, group_norm_affine
+from ..ops.quant import int8_concat_conv, int8_conv, quantize_weight
 
-GN_CONV_MODES = ("unfused", "fused", "int8")
+GN_CONV_MODES = ("unfused", "fused", "int8", "int8_xla")
+INT8_MODES = ("int8", "int8_xla")  # sampling only: int8 weights made by prepare_gn_conv
 
 
 def timestep_embedding(time_steps: torch.Tensor, channels: int, max_period: int = 10000) -> torch.Tensor:
@@ -90,21 +102,26 @@ class ResBlock(nn.Module):
 
     ``skip``: the decoder's skip tensor; the block then acts on the channel
     concat [x, skip], which the fused modes never build (as the JAX package's
-    ``ResBlock(skip=...)`` does) and the unfused one builds."""
+    ``ResBlock(skip=...)`` does) and the unfused ones build.
+    ``skip_channels``: the skip tensor's channels in a decoder block, whose
+    in conv the "int8_xla" route quantizes as two parts."""
 
     def __init__(self, channels: int, d_t_emb: int, out_channels: Optional[int] = None,
-                 gn_conv: str = "unfused"):
+                 gn_conv: str = "unfused", skip_channels: int = 0):
         super().__init__()
         if gn_conv not in GN_CONV_MODES:
             raise ValueError(f"gn_conv must be one of {GN_CONV_MODES}, got {gn_conv!r}")
         out = out_channels or channels
         self.gn_conv = gn_conv
+        self.skip_channels = skip_channels
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), _conv3x3(channels, out))
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(d_t_emb, out))
         # index 2 stands where the reference keeps its Dropout
         self.out_layers = nn.Sequential(GroupNorm32(out), nn.SiLU(), nn.Identity(), _conv3x3(out, out))
         self.skip_connection = nn.Identity() if out == channels else nn.Conv2d(channels, out, 1)
-        self._int8 = None  # per conv: (weight data_ptr, int8 weight, scales)
+        # per conv: (weight data_ptr, int8 weight, scales[, int8 weight, scales
+        # of the skip part])
+        self._int8 = None
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -114,6 +131,8 @@ class ResBlock(nn.Module):
             h = self.in_layers(x)
             h = h + self.emb_layers(t_emb).to(h.dtype)[:, :, None, None]
             return self.skip_connection(x) + self.out_layers(h)
+        if self.gn_conv == "int8_xla":
+            return self._forward_int8_xla(x, t_emb, skip)
         # the kernels take contiguous NCHW (a SpatialTransformer's output is not)
         x = x.contiguous()
         skip = skip.contiguous() if skip is not None else None
@@ -141,6 +160,34 @@ class ResBlock(nn.Module):
         y = F.conv2d(x, sc.weight[:, :c1]) + F.conv2d(skip, sc.weight[:, c1:])
         return y + sc.bias.to(y.dtype)[:, None, None]
 
+    def _forward_int8_xla(self, x, t_emb, skip):
+        """The unfused block with its two 3x3 convs as int8 products (JAX's
+        ``Int8Conv3x3`` and, for the decoder's concat, ``Int8ConcatConv``:
+        each part quantized with its own scales, the two partial outputs
+        added in the activation dtype, then the bias)."""
+        if skip is not None:
+            x = torch.cat([x, skip], dim=1)
+        y = self.in_layers[1](self.in_layers[0](x))
+        parts = self._int8_parts(0)
+        if len(parts) == 1:
+            h = int8_conv(y, *parts[0], self.in_layers[2].bias)
+        else:
+            c1 = x.shape[1] - self.skip_channels
+            h = int8_concat_conv(y[:, :c1], y[:, c1:], parts, self.in_layers[2].bias)
+        h = h + self.emb_layers(t_emb).to(h.dtype)[:, :, None, None]
+        y = self.out_layers[1](self.out_layers[0](h))
+        return self.skip_connection(x) + int8_conv(y, *self._int8_parts(1)[0],
+                                                   self.out_layers[3].bias)
+
+    def _int8_parts(self, i):
+        """Conv i's int8 weights and scales, one pair per input part."""
+        conv = (self.in_layers[2], self.out_layers[3])[i]
+        entry = self._int8[i] if self._int8 is not None else (None,)
+        if entry[0] != conv.weight.data_ptr():
+            raise RuntimeError(f"gn_conv={self.gn_conv!r} needs UNetModel.prepare_gn_conv() "
+                               "after the weights are set, cast or moved")
+        return list(zip(entry[1::2], entry[2::2]))
+
     def _gn_conv(self, i, x, a, off, x2=None, a2=None, off2=None, residual=None):
         """Site i (0: in_layers, 1: out_layers) through kernel 4 or 5."""
         conv = (self.in_layers[2], self.out_layers[3])[i]
@@ -148,24 +195,29 @@ class ResBlock(nn.Module):
             if x2 is None:
                 return gn_silu_conv3x3(x, a, off, conv.weight, conv.bias, residual)
             return gn_silu_conv3x3_concat(x, a, off, x2, a2, off2, conv.weight, conv.bias, residual)
-        ptr, w_q, w_scale = self._int8[i] if self._int8 is not None else (None, None, None)
-        if ptr != conv.weight.data_ptr():
-            raise RuntimeError("gn_conv='int8' needs UNetModel.prepare_gn_conv() after the "
-                               "weights are set, cast or moved")
+        w_q, w_scale = self._int8_parts(i)[0]
         if x2 is None:
             return gn_silu_conv3x3_q(x, a, off, w_q, w_scale, conv.bias, residual)
         return gn_silu_conv3x3_concat_q(x, a, off, x2, a2, off2, w_q, w_scale, conv.bias, residual)
 
     @torch.no_grad()
     def prepare_gn_conv(self) -> None:
-        """In int8 mode, quantize both 3x3 weights as they are now (once per
-        weight, as JAX hoists ``quantize_conv_kernel`` out of its sampling
-        loop); a no-op otherwise."""
-        if self.gn_conv != "int8":
+        """In an int8 mode, quantize both 3x3 weights as they are now (once
+        per weight, as JAX hoists ``quantize_conv_kernel`` out of its sampling
+        loop; ``quantize_weight`` is ``quantize_conv_kernel``): whole for
+        kernel 5 ("int8"), and for "int8_xla" a decoder block's in conv per
+        input part (x's channels, then the skip's), as JAX's per-call
+        ``quantize_weight`` of each kernel slice. A no-op otherwise."""
+        if self.gn_conv not in INT8_MODES:
             self._int8 = None
             return
-        self._int8 = [(conv.weight.data_ptr(), *quantize_conv_kernel(conv.weight))
-                      for conv in (self.in_layers[2], self.out_layers[3])]
+        convs = (self.in_layers[2], self.out_layers[3])
+        split = self.skip_channels if self.gn_conv == "int8_xla" else 0
+        self._int8 = []
+        for i, conv in enumerate(convs):
+            w = conv.weight
+            pieces = [w] if i == 1 or not split else [w[:, :-split], w[:, -split:]]
+            self._int8.append((w.data_ptr(), *[t for p in pieces for t in quantize_weight(p)]))
 
 
 class CrossAttention(nn.Module):
@@ -279,15 +331,19 @@ class UpSample(nn.Module):
 
 class TimestepEmbedSequential(nn.Sequential):
     """Runs its layers in order, handing each the inputs it takes (``skip`` to
-    the first ResBlock)."""
+    the first ResBlock). ``before_attention``: called on the activations just
+    before a SpatialTransformer, whose result it takes (the CFG fork)."""
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor, cond: torch.Tensor,
-                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+                skip: Optional[torch.Tensor] = None,
+                before_attention: Optional[Callable] = None) -> torch.Tensor:
         for layer in self:
             if isinstance(layer, ResBlock):
                 x = layer(x, t_emb, skip)
                 skip = None
             elif isinstance(layer, SpatialTransformer):
+                if before_attention is not None:
+                    x = before_attention(x)
                 x = layer(x, cond)
             else:
                 x = layer(x)
@@ -297,7 +353,8 @@ class TimestepEmbedSequential(nn.Sequential):
 class UNetModel(nn.Module):
     """The epsilon-prediction UNet: ``x`` (B, in_channels, H, W), ``time_steps``
     (B,), ``cond`` (B, n_cond, d_cond) -> (B, out_channels, H, W) in fp32.
-    ``gn_conv``: "unfused", "fused" or "int8" (see the module's docstring)."""
+    ``gn_conv``: "unfused", "fused", "int8" or "int8_xla" (see the module's
+    docstring)."""
 
     def __init__(
         self,
@@ -349,7 +406,8 @@ class UNetModel(nn.Module):
         self.output_blocks = nn.ModuleList()
         for i in reversed(range(levels)):
             for j in range(n_res_blocks + 1):
-                layers = [ResBlock(ch + skip_channels.pop(), d_time_emb, channels_list[i], gn_conv)]
+                skip_ch = skip_channels.pop()
+                layers = [ResBlock(ch + skip_ch, d_time_emb, channels_list[i], gn_conv, skip_ch)]
                 ch = channels_list[i]
                 if i in attention_levels:
                     layers.append(transformer(ch))
@@ -359,14 +417,31 @@ class UNetModel(nn.Module):
 
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), _conv3x3(ch, out_channels))
 
-    def forward(self, x: torch.Tensor, time_steps: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_steps: torch.Tensor, cond: torch.Tensor,
+                cfg_fork: bool = False) -> torch.Tensor:
+        """With ``cfg_fork``, ``x`` and ``time_steps`` have batch B and ``cond``
+        2B (``[uncond | cond]``): ``h``, the time embedding and every stored
+        skip are tiled once, just before the input half's first
+        SpatialTransformer, or before the middle block where no input level
+        attends; the output has batch 2B."""
         dtype = self.out[2].weight.dtype
         t_emb = self.time_embed(timestep_embedding(time_steps, self.channels).to(dtype))
         h = x.to(dtype)
         skips = []
+        forked = not cfg_fork
+
+        def fork(a):
+            nonlocal t_emb, skips, forked
+            t_emb = torch.cat([t_emb, t_emb])
+            skips = [torch.cat([s, s]) for s in skips]
+            forked = True
+            return torch.cat([a, a])
+
         for block in self.input_blocks:
-            h = block(h, t_emb, cond)
+            h = block(h, t_emb, cond, before_attention=None if forked else fork)
             skips.append(h)
+        if not forked:
+            h = fork(h)
         h = self.middle_block(h, t_emb, cond)
         for block in self.output_blocks:
             h = block(h, t_emb, cond, skip=skips.pop())
@@ -374,7 +449,7 @@ class UNetModel(nn.Module):
 
     def prepare_gn_conv(self) -> None:
         """Make each ResBlock's int8 weights from its weights as they are now:
-        in int8 mode, call after the weights are set, cast or moved
+        in the int8 modes, call after the weights are set, cast or moved
         (``SDFTask`` does). A no-op in the other modes."""
         for m in self.modules():
             if isinstance(m, ResBlock):

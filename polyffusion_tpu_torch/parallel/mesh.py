@@ -306,17 +306,38 @@ def set_batch_group(module: nn.Module, group) -> None:
 def batch_sharded(apply_fn: Callable, mesh: DeviceMesh) -> Callable:
     """``apply_fn`` (x, t, cond, ...) on this rank's rows of every argument
     with x's leading size, the outputs gathered back along rows: a net
-    evaluated batch-sharded over dp, seen whole by every rank."""
+    evaluated batch-sharded over dp, seen whole by every rank.
+
+    With ``cfg_fork=True`` (where ``apply_fn`` supports it) an argument of
+    twice x's leading size is CFG's ``[uncond | cond]`` pair: the rank takes
+    its rows of each half, so that its own fork sees ``[uncond_local |
+    cond_local]`` beside its rows of x, and its output, laid out the same
+    way, is gathered back into ``[uncond | cond]`` of the whole batch."""
     shard = batch_sharding(mesh)
     group = dp_group(mesh)
 
-    def apply(x, *rest):
+    def apply(x, *rest, cfg_fork=False):
         b = x.shape[0]
         rows = shard.rows(b)
-        args = [a[rows] if isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == b else a
-                for a in (x, *rest)]
-        return gather_rows(apply_fn(*args), group, shard.count)
 
+        def mine(a):
+            if not isinstance(a, torch.Tensor) or not a.dim():
+                return a
+            if a.shape[0] == b:
+                return a[rows]
+            if cfg_fork and a.shape[0] == 2 * b:
+                return torch.cat([half[rows] for half in a.chunk(2)])
+            return a
+
+        args = [mine(a) for a in (x, *rest)]
+        if not cfg_fork:
+            return gather_rows(apply_fn(*args), group, shard.count)
+        out = gather_rows(apply_fn(*args, cfg_fork=True), group, shard.count)
+        # rank-major [uncond_r | cond_r] pairs -> [uncond | cond]
+        return out.view(shard.count, 2, b // shard.count, *out.shape[1:]).transpose(0, 1).reshape(
+            out.shape)
+
+    apply.supports_cfg_fork = getattr(apply_fn, "supports_cfg_fork", False)
     return apply
 
 

@@ -287,10 +287,16 @@ class LocalGroupNorm(GroupNorm32):
 def shard_state(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """In place: the UNet ``module``'s sites become the tp modules over
     ``mesh``'s tp axis (its weights must be the same on every rank). Refused
-    for a site through the fused GroupNorm-SiLU-conv kernels."""
+    for a site through the fused GroupNorm-SiLU-conv kernels or the XLA int8
+    route."""
     if TP not in (mesh.mesh_dim_names or ()):
         return module
     for m in module.modules():
+        if isinstance(m, ResBlock) and m.gn_conv == "int8_xla":
+            raise NotImplementedError(
+                "gn_conv='int8_xla' under tensor parallelism (ROADMAP item 21): the "
+                "row-parallel out conv would take its activation amax over a channel shard, "
+                "not over the item; use gn_conv='unfused'")
         if isinstance(m, ResBlock) and m.gn_conv != "unfused":
             raise NotImplementedError(
                 f"gn_conv={m.gn_conv!r} under tensor parallelism (ROADMAP item 21): "

@@ -83,7 +83,7 @@ class PnoTreeVAETask:
         embedded, lengths = dec.emb_x(x)
         pitch, dur = dec(z, embedded, lengths, noise.tf1.to(self.device),
                          noise.tf2.to(self.device))
-        recon, pitch_loss, dur_loss = pianotree_recon_loss(x, pitch, dur)
+        recon, pitch_loss, dur_loss = pianotree_recon_loss(x, pitch, dur, group=dec.batch_group)
         kl = kl_with_standard_normal(mu, std)
         total = recon + self.beta * kl
         return total, {"loss": total, "recon": recon, "pitch": pitch_loss, "dur": dur_loss,

@@ -24,7 +24,7 @@ from ..diffusion.gaussian import diffusion_loss, draw_t_noise
 from ..diffusion.progressive import make_v_to_eps_apply
 from ..diffusion.schedule import NoiseSchedule, make_schedule
 from ..models.encoders import ChordEncoder, PianoTreeEncoder, TextureEncoder
-from ..models.unet import UNetModel, init_weights_
+from ..models.unet import INT8_MODES, UNetModel, init_weights_
 from ..utils.precision import cast_sampling_params
 
 CFG_DROP = 0.2  # the reference's random.random() < 0.2, one coin per batch
@@ -104,8 +104,8 @@ class SDFTask:
         (``utils/precision.py``) after any ``load_unet_state``, unless
         ``training``: then they stay fp32, the trainer's master weights.
         ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused",
-        or for sampling "int8", whose int8 weights are made whenever the
-        weights are placed). ``bf16_params``: cast for sampling whatever the
+        or for sampling "int8" or "int8_xla", whose int8 weights are made
+        whenever the weights are placed). ``bf16_params``: cast for sampling whatever the
         preset's ``bf16`` says (JAX ``InferenceSession(bf16_params=True)``;
         the port's modules then compute in bf16)."""
         self.device = resolve_device(device)
@@ -134,8 +134,8 @@ class SDFTask:
             if need and given[name] is None:
                 raise ValueError(f"cond_type {self.cond_type!r} with use_enc "
                                  f"{self.use_enc} needs {name}")
-        if training and gn_conv == "int8":
-            raise ValueError("gn_conv='int8' is sampling-only (no gradient): train with "
+        if training and gn_conv in INT8_MODES:
+            raise ValueError(f"gn_conv={gn_conv!r} is sampling-only (no gradient): train with "
                              "'unfused' or 'fused'")
         self.gn_conv = gn_conv
         self.unet = self.make_unet()
@@ -300,10 +300,16 @@ class SDFTask:
 
     # -- the net ----------------------------------------------------------------
 
-    def apply_eps(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        """eps prediction on NCHW ``x`` (fp32 out); a ``v_prediction`` task
-        replaces it on the instance with the v->eps adapter."""
-        return self.unet(x, t, cond)
+    def apply_eps(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                  cfg_fork: bool = False) -> torch.Tensor:
+        """eps prediction on NCHW ``x`` (fp32 out); with ``cfg_fork``, ``cond``
+        has twice ``x``'s batch and so has the output (the UNet's CFG fork).
+        A ``v_prediction`` task replaces it on the instance with the v->eps
+        adapter, which does not fork."""
+        return self.unet(x, t, cond, cfg_fork=cfg_fork)
+
+    # the samplers may fork CFG inside the UNet (diffusion/sampler.py:make_eps_fn)
+    apply_eps.supports_cfg_fork = True
 
     def apply_raw(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """The net's own output (eps, or v for a distilled student), never

@@ -12,7 +12,10 @@ rank holds its rows of the global batch and draws the global step noise from
 one-process step of the whole batch. The fp32 master gradients are averaged
 over dp after ``grads_to_masters`` (FSDP2 reduce-scatters its sharded ones in
 fp32 itself), the clip counts each logical element once, and the metrics are
-means over the global batch.
+means over the global batch. A loss that is already the global batch's on
+every rank (a masked mean summed over the task's batch group, e.g. the
+PianoTree decoder's) gives each rank the same metrics and a gradient share
+summed over the group, so this averaging gives the global-batch step too.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, Optional
 import torch
 from torch.distributed.tensor import DTensor
 
+from ..models.unet import INT8_MODES
 from ..parallel.mesh import (
     DP,
     all_reduce_mean_,
@@ -44,7 +48,11 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 
 def _check(task, mesh, fsdp: bool) -> None:
-    """JAX's refusals (``train/step.py:79-90``), and fsdp without a mesh."""
+    """JAX's refusals (``train/step.py:79-90``), fsdp without a mesh, and a
+    UNet on a sampling-only int8 route (its convolutions have no gradient)."""
+    if getattr(task, "gn_conv", None) in INT8_MODES:
+        raise ValueError(f"gn_conv={task.gn_conv!r} is sampling-only (no gradient): train "
+                         "with 'unfused' or 'fused'")
     if mesh is None:
         if fsdp:
             raise ValueError("fsdp=True needs a dp mesh (parallel.make_mesh)")

@@ -2,10 +2,16 @@
 rank of a gloo group on the CPU, one intra-op thread each.
 
     python tests/torch_parallel_worker.py steps <dir> <rank> <world> <port>
+    python tests/torch_parallel_worker.py losses <dir> <rank> <world> <port>
+    python tests/torch_parallel_worker.py fork <dir> <rank> <world> <port>
 
-``steps`` reads ``<dir>/inputs.pt`` (written by the test), runs every case
-over the group, and rank 0 writes ``<dir>/results.pt``. Torch only: a rank
-imports neither JAX nor the JAX package.
+Each mode reads ``<dir>/inputs.pt`` (written by the test), runs its cases
+over the group, and rank 0 writes ``<dir>/results.pt``: ``steps`` the sdf,
+autoencoder and distillation steps and the sessions of
+``tests/test_torch_parallel.py``, ``losses`` the pretraining and DDPM steps
+of ``tests/test_torch_parallel_losses.py``, ``fork`` the sessions with CFG
+forked inside the UNet of ``tests/test_torch_cfg_fork.py``. Torch only: a rank imports
+neither JAX nor the JAX package.
 """
 
 import os
@@ -25,11 +31,22 @@ from polyffusion_tpu_torch.parallel import (  # noqa: E402
     make_tp_mesh,
     shard_batch,
 )
+from polyffusion_tpu_torch.models import PianoTreeDecoder, PianoTreeEncoder  # noqa: E402
 from polyffusion_tpu_torch.parallel.mesh import full, local  # noqa: E402
-from polyffusion_tpu_torch.tasks import AutoencoderTask, SDFTask  # noqa: E402
+from polyffusion_tpu_torch.tasks import (  # noqa: E402
+    AutoencoderTask,
+    Chd8BarTask,
+    DDPMTask,
+    PnoTreeVAETask,
+    SDFTask,
+)
 from polyffusion_tpu_torch.tasks.autoencoder import AENoise  # noqa: E402
+from polyffusion_tpu_torch.tasks.chd_8bar import ChordNoise  # noqa: E402
+from polyffusion_tpu_torch.tasks.ddpm import DDPMNoise  # noqa: E402
 from polyffusion_tpu_torch.tasks.distill import DistillNoise, DistillTask  # noqa: E402
+from polyffusion_tpu_torch.tasks.pnotree_vae import PianoTreeNoise  # noqa: E402
 from polyffusion_tpu_torch.tasks.sdf import StepNoise  # noqa: E402
+from polyffusion_tpu_torch.tasks.vae import VAE  # noqa: E402
 from polyffusion_tpu_torch.train import create_state, make_train_step  # noqa: E402
 
 
@@ -99,14 +116,64 @@ def distill_step(inp, mesh, fsdp=False):
     return _record(metrics, state)
 
 
-def paint(inp, mesh, fsdp_params=False):
+def paint(inp, mesh, fsdp_params=False, cfg_fork=False):
     """A DDIM-3 CFG-5 inpainting request of JAX's dp paint test, batch-sharded."""
     task = SDFTask(Params(inp["paint_cfg"]), device="cpu")
     task.load_unet_state(inp["paint_state"])
     session = InferenceSession(task, use_ddim=True, ddim_steps=3, seed=0, device="cpu",
-                               mesh=mesh, fsdp_params=fsdp_params)
+                               mesh=mesh, fsdp_params=fsdp_params, cfg_fork=cfg_fork)
     return session.predict(inp["p_cond"], uncond_scale=5.0, orig=inp["p_orig"],
                            mask=inp["p_mask"], noise=inp["p_noise"])
+
+
+def _pretrain_task(inp, name):
+    """A task of ``tests/test_torch_parallel_losses.py`` at its tiny widths,
+    holding the JAX-initialised weights."""
+    cfg = Params(inp[f"{name}_cfg"])
+    if name == "pnotree_vae":
+        task = PnoTreeVAETask(cfg, device="cpu")
+        task.model = VAE("pnotree_enc", PianoTreeEncoder(**inp["pno_enc"]),
+                         "pnotree_dec", PianoTreeDecoder(**inp["pno_dec"]))
+        task.model.load_state_dict(inp[f"{name}_state"], strict=True)
+    elif name == "chd_8bar":
+        task = Chd8BarTask(cfg, device="cpu")
+        task.model.load_state_dict(inp[f"{name}_state"], strict=True)
+    else:
+        task = DDPMTask(cfg, device="cpu", training=True)
+        task.load_unet_state(inp[f"{name}_state"])
+    return cfg, task
+
+
+LOSS_NOISE = {"pnotree_vae": PianoTreeNoise, "chd_8bar": ChordNoise, "ddpm": DDPMNoise}
+
+
+def pretrain_step(inp, name, mesh):
+    """One step of ``name`` on this rank's rows of the global batch and the
+    global noise (one process: all of them)."""
+    cfg, task = _pretrain_task(inp, name)
+    state = create_state(task.model, cfg.learning_rate, cfg.max_grad_norm, mesh=mesh)
+    step = make_train_step(task, mesh=mesh)
+    batch = _rows(inp[f"{name}_batch"], mesh)
+    metrics = step(state, batch, seed=0, noise=LOSS_NOISE[name](*inp[f"{name}_noise"]))
+    return _record(metrics, state)
+
+
+def losses(out_dir, rank):
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    mesh = make_mesh("cpu")
+    res = {name: pretrain_step(inp, name, mesh) for name in LOSS_NOISE}
+    if rank == 0:
+        torch.save(res, os.path.join(out_dir, "results.pt"))
+
+
+def fork(out_dir, rank):
+    """``paint`` with CFG forked inside the UNet, dp and fsdp-params."""
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    mesh = make_mesh("cpu")
+    res = {"dp": paint(inp, mesh, cfg_fork=True),
+           "fsdp": paint(inp, mesh, fsdp_params=True, cfg_fork=True)}
+    if rank == 0:
+        torch.save(res, os.path.join(out_dir, "results.pt"))
 
 
 def steps(out_dir, rank):
@@ -131,7 +198,7 @@ def main():
     mode, out_dir, rank, world, port = sys.argv[1:6]
     torch.set_num_threads(1)
     init_process_group("cpu", int(rank), int(world), f"tcp://localhost:{port}")
-    {"steps": steps}[mode](out_dir, int(rank))
+    {"steps": steps, "losses": losses, "fork": fork}[mode](out_dir, int(rank))
     dist.barrier()
     dist.destroy_process_group()
 
