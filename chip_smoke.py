@@ -45,6 +45,15 @@ after:
   then a DDIM-50 CFG-5 request with ``cfg_fork`` at batch 64 and one with
   ``gn_conv="int8_xla"`` at batch 16 (550 kernel-1 launches each, no kernel
   4 or 5);
+- the space-to-depth level 0 (``[s2d]``, ``gn_conv="s2d"``): the full-width
+  fp32 UNet at B = 4 card vs CPU and folded vs unfolded on the card, its fork
+  at B = 2 vs the double batch (atol 2e-4, rtol 1e-4; faults: ``from_s2d``
+  with its parities swapped, the condition's halves swapped), an fp32 train
+  step card vs CPU at the [train] limits (same fault) with 11 / 11 / 45
+  launches of kernels 1 / 2 / 6 (the 11 folded norms' backward is
+  autograd's), the bf16 eval at B = 64 folded and unfolded in turns (ms, peak
+  memory and their mean relative difference, a reading), and a DDIM-50 CFG-5
+  request at batch 16 (550 kernel-1 launches);
 - training: ``polyffusion_tpu_torch.main`` on synthetic songs with a seeded
   random ``chd8bar.pt``, the same preset in bf16 at its batch 16, 30 steps with
   one validation and one checkpoint, then ``--resume`` for 6 more;
@@ -268,7 +277,7 @@ ATTENTION_SITES, GROUPNORM_SITES = 11, 56
 # one epilogue and one UNet eval per step; (B) 2 x 3 - 1 = 5 windows of DDIM-50
 CLI_SONG, CLI_A_SEGMENTS, CLI_B_SEGMENTS, CLI_B_PIECES = "song000.npz", 2, 3, 2
 CLI_DDPM_STEPS, CLI_DDIM_STEPS = 1000, 50
-PROFILE_STEPS = 50
+PROFILE_STEPS = 20
 # Kernel 4 (fused GroupNorm-SiLU-conv3x3) against its plain version, elementwise.
 # bf16: both round the SiLU output and w to bf16 (products exact in fp32) and
 # differ in the order of the fp32 sums, then round the output once: an output
@@ -295,6 +304,12 @@ INT8_EPS_REL = 0.05
 INT8_ROUTE_SITES = [(16, 256, 0, 256, 16), (16, 64, 64, 64, 128)]
 INT8_OUT_ATOL, INT8_OUT_RTOL = 1e-30, 2**-22  # the atol only keeps 0 / 0 out
 ROUTES_INT8_BATCH, ROUTES_FORK_BATCH = 16, 64
+# [s2d]: the space-to-depth level 0 (gn_conv="s2d"). The fp32 UNet's batch,
+# the bf16 eval's (CFG batch twice it) and the DDIM-50 request's; the level-0
+# GroupNorms that fold (4 input and 6 output ResBlock norms, the head), whose
+# backward is autograd's, not kernel 6
+S2D_FP32_BATCH, S2D_EVAL_BATCH, S2D_REQUEST_BATCH = 4, 64, 16
+S2D_FOLDED_NORMS = 11
 # Kernel 3 (head-major attention) against its plain version: kernel 1's limits.
 # Shapes (BH, T, D): the JAX package's tests', ragged T (the kernel takes any
 # T >= 1), each in fp32 and bf16; then a batch-128 level-2 / level-3
@@ -1597,38 +1612,54 @@ def check_int8_against_fused():
 
 
 
-def check_train_step_against_cpu(gn_conv="unfused"):
-    """One full-width fp32 train step at batch 2 on the card (with the kernels)
-    against the CPU (with their plain versions): same weights, batch, t and
-    noise; the loss, the gradients and their norm, and the updated parameters.
-    With ``gn_conv="fused"`` the forward runs kernel 4 at every ResBlock site on
-    the card (its backward recomputes through the plain version)."""
+def step_inputs():
+    """The fp32 train step checks' batch of 2: piano rolls, chords, t and
+    noise (a CPU tensor each)."""
+    import torch
+
+    rng = np.random.default_rng(2)
+    x0 = torch.from_numpy((rng.random((2, 2, 128, 128)) > 0.97).astype(np.uint8))
+    chords = torch.from_numpy(random_chords(rng, 2))
+    t = torch.tensor([37, 802])
+    noise = torch.from_numpy(rng.standard_normal((2, 2, 128, 128)).astype(np.float32))
+    return x0, chords, t, noise
+
+
+def one_train_step(device, gn_conv, inputs, counters=None):
+    """One full-width fp32 train step of a new task (seed 3) on ``device``:
+    (loss, grad norm, params, grads, seconds), all on the CPU; with
+    ``counters``, the launches of the step (set to 0 just before it)."""
     import torch
 
     from polyffusion_tpu_torch.tasks.sdf import StepNoise
     from polyffusion_tpu_torch.train import create_state, make_train_step
 
     cfg = full_cfg(bf16=False)
-    rng = np.random.default_rng(2)
-    x0 = torch.from_numpy((rng.random((2, 2, 128, 128)) > 0.97).astype(np.uint8))
-    chords = torch.from_numpy(random_chords(rng, 2))
-    t = torch.tensor([37, 802])
-    noise = torch.from_numpy(rng.standard_normal((2, 2, 128, 128)).astype(np.float32))
-    out = {}
-    for device in ("cuda", "cpu"):
-        task = make_task(cfg, device, seed=3, training=True, gn_conv=gn_conv)
-        state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm)
-        batch = (x0.to(device), None, chords.to(device), None)
-        t0 = time.perf_counter()
-        metrics = make_train_step(task)(state, batch, seed=0, noise=StepNoise(
-            t.to(device), noise.to(device), torch.tensor(False, device=device)))
-        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
-        params = {k: v.detach().cpu() for k, v in state.params().items()}
-        grads = {k: v.grad.cpu() for k, v in state.params().items()}  # clipped: norm < max here
-        out[device] = (loss, norm, params, grads, time.perf_counter() - t0)
-        del task, state
-    (loss, norm, got, got_g, t_gpu), (want_loss, want_norm, want, want_g, t_cpu) = out["cuda"], out["cpu"]
-    lr = cfg.learning_rate
+    x0, chords, t, noise = inputs
+    task = make_task(cfg, device, seed=3, training=True, gn_conv=gn_conv)
+    state = create_state(task.unet, cfg.learning_rate, cfg.max_grad_norm)
+    batch = (x0.to(device), None, chords.to(device), None)
+    step = make_train_step(task)
+    if counters is not None:
+        zero_counts(counters)
+    t0 = time.perf_counter()
+    metrics = step(state, batch, seed=0, noise=StepNoise(
+        t.to(device), noise.to(device), torch.tensor(False, device=device)))
+    loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+    secs = time.perf_counter() - t0
+    launches = None if counters is None else {n: fn.launches for n, fn in counters.items()}
+    params = {k: v.detach().cpu() for k, v in state.params().items()}
+    grads = {k: v.grad.cpu() for k, v in state.params().items()}  # clipped: norm < max here
+    return (loss, norm, params, grads, secs), launches
+
+
+def compare_steps(got_step, want_step, lr):
+    """The [train] limits' readings of a step against another: (loss rel,
+    grad norm rel, the worst gradient's ratio to its limit and its name, the
+    params' max abs error, their share above STEP_PARAM_TIGHT, pass)."""
+    import torch
+
+    (loss, norm, got, got_g, _), (want_loss, want_norm, want, want_g, _) = got_step, want_step
     loss_err, norm_err = abs(loss - want_loss) / abs(want_loss), abs(norm - want_norm) / want_norm
     grad_ratio, worst = 0.0, ""
     for k, w in want_g.items():  # per tensor: |dg| <= rtol |g| + 1e-9 (exact zeros stay zero)
@@ -1637,15 +1668,31 @@ def check_train_step_against_cpu(gn_conv="unfused"):
             grad_ratio, worst = r, k
     err = torch.cat([(got[k] - w).abs().flatten() for k, w in want.items()])
     share = (err > STEP_PARAM_TIGHT).float().mean().item()
-    log(f"[train] full-width fp32 step (B=2, gn_conv {gn_conv}) card vs CPU: loss {loss:.7g} vs "
-        f"{want_loss:.7g} "
-        f"(rel {loss_err:.3g}, limit {STEP_LOSS_RTOL}), grad_norm {norm:.7g} vs {want_norm:.7g} "
+    ok = (loss_err <= STEP_LOSS_RTOL and norm_err <= STEP_NORM_RTOL and grad_ratio <= 1.0
+          and err.max().item() <= 2 * lr and share <= STEP_PARAM_SHARE)
+    return loss_err, norm_err, grad_ratio, worst, err.max().item(), share, ok
+
+
+def check_train_step_against_cpu(gn_conv="unfused"):
+    """One full-width fp32 train step at batch 2 on the card (with the kernels)
+    against the CPU (with their plain versions): same weights, batch, t and
+    noise; the loss, the gradients and their norm, and the updated parameters.
+    With ``gn_conv="fused"`` the forward runs kernel 4 at every ResBlock site on
+    the card (its backward recomputes through the plain version)."""
+    cfg = full_cfg(bf16=False)
+    inputs = step_inputs()
+    gpu, _ = one_train_step("cuda", gn_conv, inputs)
+    cpu, _ = one_train_step("cpu", gn_conv, inputs)
+    lr = cfg.learning_rate
+    loss_err, norm_err, grad_ratio, worst, max_err, share, ok = compare_steps(gpu, cpu, lr)
+    log(f"[train] full-width fp32 step (B=2, gn_conv {gn_conv}) card vs CPU: loss {gpu[0]:.7g} vs "
+        f"{cpu[0]:.7g} "
+        f"(rel {loss_err:.3g}, limit {STEP_LOSS_RTOL}), grad_norm {gpu[1]:.7g} vs {cpu[1]:.7g} "
         f"(rel {norm_err:.3g}, limit {STEP_NORM_RTOL}); gradients per tensor {grad_ratio:.3g} x "
         f"the limit (rel {STEP_GRAD_RTOL} in norm; worst {worst}); params max_abs_err "
-        f"{err.max().item():.3g} (limit {2 * lr:.3g} = 2 lr), share above {STEP_PARAM_TIGHT}: "
-        f"{share:.3g} (limit {STEP_PARAM_SHARE}); card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
-    if not (loss_err <= STEP_LOSS_RTOL and norm_err <= STEP_NORM_RTOL and grad_ratio <= 1.0
-            and err.max().item() <= 2 * lr and share <= STEP_PARAM_SHARE):
+        f"{max_err:.3g} (limit {2 * lr:.3g} = 2 lr), share above {STEP_PARAM_TIGHT}: "
+        f"{share:.3g} (limit {STEP_PARAM_SHARE}); card {gpu[4]:.2f} s (first call), CPU {cpu[4]:.2f} s")
+    if not ok:
         raise AssertionError(f"the full-width fp32 train step (gn_conv {gn_conv}) on the card "
                              "disagrees with the CPU")
 
@@ -2217,6 +2264,212 @@ def drive_routes(counters, smi):
     log(f"[routes] summary {json.dumps(summary)}")
     log(f"[routes] phase {phase:.3f} s")
     return launches
+
+
+def swapped_parities(from_s2d):
+    """The planted fault of the [s2d] checks: ``from_s2d`` with the two
+    W-parities of its input swapped (every output column pair reversed)."""
+    def fault(h):
+        c = h.shape[1] // 2
+        return from_s2d(h[:, list(range(c, 2 * c)) + list(range(c))])
+    return fault
+
+
+class PlantedUnfold:
+    """Within the block, the UNet's head unfolds with ``swapped_parities``."""
+
+    def __enter__(self):
+        from polyffusion_tpu_torch.models import unet as unet_mod
+
+        self.real = unet_mod.from_s2d
+        unet_mod.from_s2d = swapped_parities(self.real)
+
+    def __exit__(self, *exc):
+        from polyffusion_tpu_torch.models import unet as unet_mod
+
+        unet_mod.from_s2d = self.real
+
+
+def check_s2d_unet():
+    """The full-width fp32 UNet (TF32 off) with ``gn_conv="s2d"`` at B =
+    S2D_FP32_BATCH: on the card against the CPU and against the unfolded
+    (unfused) UNet on the card, both at UNET_ATOL / UNET_RTOL (fault:
+    ``swapped_parities``); the forked UNet at B = 2 (condition 2B) against its
+    double batch at the same limit (fault: the condition's halves swapped).
+    Returns the ratios to the limits."""
+    import torch
+
+    cfg = full_cfg(bf16=False)
+    rng = np.random.default_rng(31)
+    b = S2D_FP32_BATCH
+    x = torch.from_numpy(rng.standard_normal((b, 2, 128, 128)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, cfg.n_steps, b))
+    cond = torch.from_numpy(rng.standard_normal((b, 1, cfg.d_cond)).astype(np.float32))
+    card = make_task(cfg, "cuda", seed=1, gn_conv="s2d")
+    xc, tc, cc = x.cuda(), t.cuda(), cond.cuda()
+    out = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got = card.apply_eps(xc, tc, cc)
+        t_gpu = time.perf_counter() - t0
+        with PlantedUnfold():
+            fault = card.apply_eps(xc, tc, cc)
+        unfolded = make_task(cfg, "cuda", seed=1).apply_eps(xc, tc, cc)
+        t0 = time.perf_counter()
+        want = make_task(cfg, "cpu", seed=1, gn_conv="s2d").apply_eps(x, t, cond).cuda()
+        t_cpu = time.perf_counter() - t0
+        for name, ref in (("card_vs_cpu", want), ("folded_vs_unfolded", unfolded)):
+            out[name] = limit_ratio(got, ref, UNET_ATOL, UNET_RTOL)
+            out[f"{name}_fault"] = limit_ratio(fault, ref, UNET_ATOL, UNET_RTOL)
+        # the fork: x and t at B = 2, the condition [uncond | cond] at 2B
+        x2, t2, c_in = xc[:2], tc[:2], torch.cat([-torch.ones_like(cc[:2]), cc[:2]])
+        swapped = torch.cat([cc[:2], -torch.ones_like(cc[:2])])
+        double = card.apply_eps(torch.cat([x2, x2]), torch.cat([t2, t2]), c_in)
+        out["fork"] = limit_ratio(card.apply_eps(x2, t2, c_in, cfg_fork=True), double,
+                                  UNET_ATOL, UNET_RTOL)
+        out["fork_fault"] = limit_ratio(card.apply_eps(x2, t2, swapped, cfg_fork=True), double,
+                                        UNET_ATOL, UNET_RTOL)
+    log(f"[s2d] full-width fp32 UNet (B={b}, gn_conv s2d), ratio to the limit (atol "
+        f"{UNET_ATOL}, rtol {UNET_RTOL}; limit 1): card vs CPU {out['card_vs_cpu']:.3g}, folded "
+        f"vs unfolded on the card {out['folded_vs_unfolded']:.3g}; planted fault (from_s2d "
+        f"parities swapped) {out['card_vs_cpu_fault']:.3g} / {out['folded_vs_unfolded_fault']:.3g} "
+        f"(must exceed 1); max_abs_err vs CPU {(got - want).abs().max().item():.3g}, |out| max "
+        f"{want.abs().max().item():.3g}; card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s")
+    log(f"[s2d] fp32 fork (B=2, condition 2B) vs double batch: ratio {out['fork']:.3g}; planted "
+        f"fault (halves swapped) {out['fork_fault']:.3g} (must exceed 1)")
+    if not (max(out["card_vs_cpu"], out["folded_vs_unfolded"], out["fork"]) <= 1.0
+            < min(out["card_vs_cpu_fault"], out["folded_vs_unfolded_fault"], out["fork_fault"])
+            and torch.isfinite(got).all()):
+        raise AssertionError("the s2d UNet disagrees with the CPU, the unfolded UNet or its "
+                             "double batch, or a planted fault passed")
+    return out
+
+
+def check_s2d_train_step(counters):
+    """One full-width fp32 train step with ``gn_conv="s2d"`` at batch 2,
+    card (cuDNN's convolutions, TF32 off) against CPU at the [train] limits,
+    with the card step's launches: kernels 1 / 2 / 6 at 11 / 11 / 45 (the 11
+    folded norms' backward is autograd's). Planted fault:
+    ``swapped_parities`` on the card. Returns the launches and the
+    readings."""
+    cfg = full_cfg(bf16=False)
+    inputs = step_inputs()
+    cpu, _ = one_train_step("cpu", "s2d", inputs)
+    gpu, launches = one_train_step("cuda", "s2d", inputs, counters)
+    with PlantedUnfold():
+        fault, _ = one_train_step("cuda", "s2d", inputs)
+    readings = compare_steps(gpu, cpu, cfg.learning_rate)
+    fault_readings = compare_steps(fault, cpu, cfg.learning_rate)
+    out = dict(loss_rel=readings[0], norm_rel=readings[1], grad_ratio=readings[2],
+               worst=readings[3], param_max_abs_err=readings[4], param_share=readings[5],
+               fault_loss_rel=fault_readings[0], fault_grad_ratio=fault_readings[2],
+               card_s=gpu[4], cpu_s=cpu[4], launches=launches)
+    want = dict({name: 0 for name in counters}, packed_attention=ATTENTION_SITES,
+                packed_attention_bwd=ATTENTION_SITES, gn_bwd=GROUPNORM_SITES - S2D_FOLDED_NORMS)
+    log(f"[s2d] full-width fp32 step (B=2, gn_conv s2d) "
+        f"card vs CPU: loss {gpu[0]:.7g} vs {cpu[0]:.7g} (rel {out['loss_rel']:.3g}, limit "
+        f"{STEP_LOSS_RTOL}), grad_norm rel {out['norm_rel']:.3g} (limit {STEP_NORM_RTOL}); "
+        f"gradients per tensor {out['grad_ratio']:.3g} x the limit (worst {out['worst']}); "
+        f"params max_abs_err {out['param_max_abs_err']:.3g}, share above {STEP_PARAM_TIGHT}: "
+        f"{out['param_share']:.3g}; planted fault (from_s2d parities swapped): loss rel "
+        f"{out['fault_loss_rel']:.3g}, gradients {out['fault_grad_ratio']:.3g} x the limit "
+        f"(must fail); "
+        f"card {gpu[4]:.2f} s (first call), CPU {cpu[4]:.2f} s; launches {launches}")
+    if not readings[-1] or fault_readings[-1]:
+        raise AssertionError("the s2d train step on the card disagrees with the CPU, or its "
+                             "planted fault passed")
+    if launches != want:
+        raise AssertionError(f"[s2d] train step: expected launches {want}, got {launches}")
+    return launches, out
+
+
+def time_s2d_eval():
+    """The full-width bf16 UNet eval at B = S2D_EVAL_BATCH (CFG batch 2B),
+    folded against unfolded on the same weights: ms by CUDA events (5 rounds
+    in turns), peak device memory above the resident, and the outputs' mean
+    relative difference (a reading: bf16 through some 25 layers in another
+    order has no published limit). Returns the readings and the s2d task."""
+    import torch
+
+    cfg = full_cfg(bf16=True)
+    rng = np.random.default_rng(37)
+    b = S2D_EVAL_BATCH
+    x = torch.from_numpy(rng.standard_normal((b, 2, 128, 128)).astype(np.float32)).cuda()
+    t = torch.from_numpy(rng.integers(0, cfg.n_steps, b)).cuda()
+    cond = torch.from_numpy(rng.standard_normal((b, 1, cfg.d_cond)).astype(np.float32)).cuda()
+    x2, t2, c_in = torch.cat([x, x]), torch.cat([t, t]), torch.cat([-torch.ones_like(cond), cond])
+    tasks = {mode: make_task(cfg, "cuda", seed=3, gn_conv=mode) for mode in ("unfused", "s2d")}
+    out = {}
+    with torch.inference_mode():
+        eps = {mode: task.apply_eps(x2, t2, c_in).float() for mode, task in tasks.items()}
+        out["mean_rel_diff"] = ((eps["s2d"] - eps["unfused"]).abs().mean()
+                                / eps["unfused"].abs().mean()).item()
+        forms = {mode: (lambda task=task: task.apply_eps(x2, t2, c_in))
+                 for mode, task in tasks.items()}
+        out["ms"] = time_in_turns(forms, rounds=5, inner=2)
+        out["peak_gib"] = {}
+        for name, fn in forms.items():
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            out["peak_gib"][name] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    log(f"[s2d] bf16 eval at B={b} (CFG batch {2 * b}): ms unfused {out['ms']['unfused']:.3f}, "
+        f"s2d {out['ms']['s2d']:.3f} (CUDA events, 5 rounds in turns; s2d / unfused "
+        f"{out['ms']['s2d'] / out['ms']['unfused']:.4f}); peak device memory above the resident "
+        f"GiB: unfused {out['peak_gib']['unfused']:.3f}, s2d {out['peak_gib']['s2d']:.3f}; eps "
+        f"mean |s2d - unfused| / mean |unfused| {out['mean_rel_diff']:.4g} (a reading, not "
+        f"gated)")
+    if not torch.isfinite(eps["s2d"]).all():
+        raise AssertionError("the bf16 s2d UNet's eps is not finite")
+    return out, tasks["s2d"]
+
+
+def drive_s2d_request(counters, task):
+    """One DDIM-50 CFG-5 request at batch S2D_REQUEST_BATCH through
+    ``InferenceSession`` on ``task`` (the full-width bf16 preset with
+    ``gn_conv="s2d"``), the launch counts set to 0 just before it and read
+    just after (kernel 1 only: 550). Returns the launches and the seconds."""
+    import torch
+
+    from polyffusion_tpu_torch.inference import InferenceSession
+
+    b = S2D_REQUEST_BATCH
+    session = InferenceSession(task, sampler="ddim", ddim_steps=50, seed=0)
+    chords = torch.from_numpy(random_chords(np.random.default_rng(41), b))
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = session.generate(task.encode_chord(chords), uncond_scale=5.0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = dict({name: 0 for name in counters}, packed_attention=LAUNCHES_PER_REQUEST)
+    log(f"[s2d] request: batch {b}, DDIM-50 CFG 5: {secs:.3f} s, {b / secs:.3f} samples/s, "
+        f"launches {launches}")
+    if launches != want:
+        raise AssertionError(f"[s2d] request: expected launches {want}, got {launches}")
+    if gen.shape != (b, 2, 128, 128) or not np.isfinite(gen).all():
+        raise AssertionError(f"[s2d] request: bad output, shape {gen.shape}")
+    return launches, secs
+
+
+def drive_s2d(counters, smi):
+    """``[s2d]``: the space-to-depth level 0 (``check_s2d_unet``,
+    ``check_s2d_train_step``, ``time_s2d_eval``, ``drive_s2d_request``).
+    Returns the launches of the train step and of the request."""
+    t0 = time.perf_counter()
+    unet = check_s2d_unet()
+    step_launches, step = check_s2d_train_step(counters)
+    evals, task = time_s2d_eval()
+    request_launches, secs = drive_s2d_request(counters, task)
+    phase = time.perf_counter() - t0
+    summary = dict(card=smi, unet=unet, step=step, eval=evals, request_s=secs,
+                   request_batch=S2D_REQUEST_BATCH, phase_s=phase)
+    log(f"[s2d] summary {json.dumps(summary)}")
+    log(f"[s2d] phase {phase:.3f} s")
+    return {"training_s2d": step_launches, "sampling_s2d": request_launches}
 
 
 def midi_instruments(path: str) -> int:
@@ -4908,6 +5161,8 @@ def main() -> int:
     fused_training = drive_fused_train_steps(counters)
     # the XLA int8 route and the CFG fork
     routes = drive_routes(counters, smi)
+    # the space-to-depth level 0
+    s2d = drive_s2d(counters, smi)
     with tempfile.TemporaryDirectory() as work:
         before = map_cache_counts()
         training = drive_training_path(counters, work)
@@ -4917,7 +5172,9 @@ def main() -> int:
         before = map_cache_counts()
         cli, request_secs, mask = drive_inference_cli(counters, work)
         cache["inference_cli"] = map_cache_delta(before, "the inference CLI's requests A and B")
+        t0 = time.perf_counter()
         profile_inpainting(work, mask, request_secs)
+        log(f"[profile] phase {time.perf_counter() - t0:.3f} s")
         # the trainer's and converter's leftovers and the tools
         maintenance, _ = drive_maintenance(counters, work)
         # parallelism: dp, fsdp and tp in one-rank groups, the CLI with --fsdp
@@ -5008,6 +5265,7 @@ def main() -> int:
                "training_mix2": mix2_training["packed_attention"],
                "cli_mix2": mix2_cli["packed_attention"],
                **{f"sampling_{name}": n["packed_attention"] for name, n in routes.items()},
+               **{name: n["packed_attention"] for name, n in s2d.items()},
                **{f"midi_{name}": n["packed_attention"] for name, n in midi_cli.items()},
                **{f"training_{name}_from_run": n["packed_attention"]
                   for name, n in from_runs.items()},
@@ -5022,6 +5280,7 @@ def main() -> int:
         entry("packed_attention_bwd", "polyffusion_tpu_torch/ops/csrc/packed_attention_bwd.cu",
               "polyffusion_tpu/ops/fused_attention.py:111",
               {"training": training["packed_attention_bwd"],
+               "training_s2d": s2d["training_s2d"]["packed_attention_bwd"],
                "training_mix2": mix2_training["packed_attention_bwd"],
                **{f"training_{name}_from_run": n["packed_attention_bwd"]
                   for name, n in from_runs.items()},
@@ -5040,7 +5299,8 @@ def main() -> int:
         # B=16 C=64 128x128 bf16: the largest GroupNorm of the train step
         entry("gn_bwd", "polyffusion_tpu_torch/ops/csrc/gn_bwd.cu",
               "polyffusion_tpu/ops/gn_bwd.py:66",
-              {"training": training["gn_bwd"], "training_mix2": mix2_training["gn_bwd"],
+              {"training": training["gn_bwd"], "training_s2d": s2d["training_s2d"]["gn_bwd"],
+               "training_mix2": mix2_training["gn_bwd"],
                **{f"training_{name}_from_run": n["gn_bwd"] for name, n in from_runs.items()},
                "distill_cli": distill["cli"]["gn_bwd"],
                "distill_cli_chain": distill["cli_chain"]["gn_bwd"],

@@ -4,7 +4,7 @@
     python -m polyffusion_tpu_torch.inference --chkpt_path <run dir or .pt> \\
         (--data_dir <npz dir> --song_fn <song.npz> | --from_midi <song.mid>) \\
         [--inpaint_type below] [--autoreg] [--ddim | --dpmpp] [--uncond_scale 5] \\
-        [--gn_conv int8 | --gn_conv int8_xla] [--cfg_fork] [--polydis_recon] --output_dir gen/
+        [--gn_conv int8 | int8_xla | s2d] [--cfg_fork] [--polydis_recon] --output_dir gen/
 
 The sampler is DDPM (all of the schedule's steps, RePaint inpainting) unless
 ``--ddim`` or ``--dpmpp`` asks for a tau-grid one. ``predict`` keeps the JAX
@@ -510,7 +510,7 @@ def build_task_for_inference(cfg: Params, pretrained_dir: Optional[str] = None,
     """The ``sdf*`` task of ``cfg`` with its frozen encoders from
     ``pretrained_dir``; its UNet weights come from ``load_unet_params``.
     ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused",
-    "int8" or "int8_xla"). ``bf16_params``: the UNet's weights cast to bf16 for sampling
+    "int8", "int8_xla" or "s2d"). ``bf16_params``: the UNet's weights cast to bf16 for sampling
     (``utils/precision.py:cast_sampling_params``) even for an fp32 preset.
     A ``ddpm`` config has its own route, ``generate_ddpm``."""
     if cfg.get("model_name") == "ddpm":
@@ -660,8 +660,9 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     p.add_argument("--gn_conv", default="unfused", choices=list(GN_CONV_MODES),
                    help="the UNet's GroupNorm-SiLU-conv3x3 sites: as three modules, through "
-                   "the fused kernel, through its int8 form, or as three modules with the "
-                   "convs as exact int8 products (int8_xla)")
+                   "the fused kernel, through its int8 form, as three modules with the "
+                   "convs as exact int8 products (int8_xla), or unfused with level 0 "
+                   "space-to-depth folded (s2d)")
     p.add_argument("--cfg_fork", action="store_true",
                    help="fork CFG's double batch inside the UNet: the condition-free layers "
                    "before its first cross-attention run once at the request's batch")

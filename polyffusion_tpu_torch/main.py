@@ -55,8 +55,8 @@ def build_task(cfg, pretrained_dir=None, device: DeviceLike = None, seed: int = 
                gn_conv: str = "unfused"):
     """The task of ``cfg`` for training, weights fp32 from ``seed`` (JAX
     ``build_task`` :16-37): an ``sdf*`` preset's ``SDFTask`` with the frozen
-    encoders from ``pretrained_dir`` and ``gn_conv`` "unfused" or "fused" (the
-    int8 route has no gradient); ``Chd8BarTask``; ``PnoTreeVAETask``;
+    encoders from ``pretrained_dir`` and ``gn_conv`` "unfused", "fused" or
+    "s2d" (the int8 routes have no gradient); ``Chd8BarTask``; ``PnoTreeVAETask``;
     ``DDPMTask``; ``AutoencoderTask``."""
     model_name = cfg["model_name"]
     generator = torch.Generator().manual_seed(seed)
@@ -100,10 +100,11 @@ def _parse(argv):
     p.add_argument("--nproc", type=int, default=None,
                    help="processes, one dp rank each (default: every visible card that "
                    "divides the batch on CUDA, one on the CPU; N gloo ranks with --device cpu)")
-    p.add_argument("--gn_conv", default="unfused", choices=["unfused", "fused"],
-                   help="the UNet's GroupNorm-SiLU-conv3x3 sites: as three modules or through "
-                   "the fused kernel (whose backward recomputes through its plain version); "
-                   "the int8 route is for sampling only")
+    p.add_argument("--gn_conv", default="unfused", choices=["unfused", "fused", "s2d"],
+                   help="the UNet's GroupNorm-SiLU-conv3x3 sites: as three modules, through "
+                   "the fused kernel (whose backward recomputes through its plain version), "
+                   "or as three modules with level 0 space-to-depth folded; the int8 routes "
+                   "are for sampling only")
     p.add_argument(
         "--set",
         action="append",

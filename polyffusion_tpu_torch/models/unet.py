@@ -1,5 +1,4 @@
-"""Stable-Diffusion-style conditional UNet (counterpart of ``polyffusion_tpu/models/unet.py``,
-without its space-to-depth branch, ``POLYFF_S2D``).
+"""Stable-Diffusion-style conditional UNet (counterpart of ``polyffusion_tpu/models/unet.py``).
 
 Under tensor parallelism ``parallel/tp.py:shard_state`` replaces the
 ResBlocks' convs, time-embedding projections and out-norms, the attention
@@ -26,8 +25,15 @@ the int8 weights once), "int8_xla" as three modules with the convolution an
 exact int8 product (JAX's ``POLYFF_INT8_XLA``: ``ops/quant.py:int8_conv``,
 per-item activation and per-channel weight scales; the decoder's concat as
 two products, each part with its own scales; sampling only, the int8 weights
-made once as for "int8"). Parameter names and shapes are the same in every
-mode.
+made once as for "int8"), "s2d" the unfused route with level 0 folded
+(JAX's ``POLYFF_S2D=1``, ``ops/s2d.py``): every level-0 activation is
+(B, 2C, H, W/2), every level-0 conv an exact conv of the folded layout with a
+kernel made from the same weights at each call (``S2dConv`` and the rest),
+the level-0 GroupNorms take their statistics per unfolded channel
+(``FoldedGroupNorm32``, whose backward is autograd's, not kernel 6), and the
+head unfolds the output. The folded convs do twice the multiply-adds of the
+plain ones. Level 0 must not attend. Parameter names and shapes are the same
+in every mode.
 
 ``cfg_fork`` (JAX's ``cfg_fork=True``): ``x`` and the time steps at batch B,
 the condition at 2B ([uncond | cond]); the net runs once at B up to its first
@@ -54,8 +60,17 @@ from ..ops.fused_gn_conv import (
 )
 from ..ops.gn_bwd import gn_affine, group_norm_affine
 from ..ops.quant import int8_concat_conv, int8_conv, quantize_weight
+from ..ops.s2d import (
+    fold_channel_vec,
+    from_s2d,
+    s2d_entry_kernel,
+    s2d_exit_stride2_kernel,
+    s2d_kernel,
+    to_s2d,
+    upsample2x_s2d,
+)
 
-GN_CONV_MODES = ("unfused", "fused", "int8", "int8_xla")
+GN_CONV_MODES = ("unfused", "fused", "int8", "int8_xla", "s2d")
 INT8_MODES = ("int8", "int8_xla")  # sampling only: int8 weights made by prepare_gn_conv
 
 
@@ -93,8 +108,82 @@ class GroupNorm32(nn.Module):
         return group_norm_affine(x, self.weight, self.bias, self.groups, self.eps)
 
 
+class FoldedGroupNorm32(GroupNorm32):
+    """``GroupNorm32`` of space-to-depth folded inputs (JAX's
+    ``FP32GroupNorm(folded=True)``): the fp32 statistics per unfolded channel,
+    the fp32 affine folded back (``fold_channel_vec``) and applied in the
+    activation dtype. ``forward(x, x2)`` normalises the virtual channel concat
+    [x, x2] (the decoder's skip, never built) and returns both parts. Its
+    backward is autograd's, as in JAX: a folded group spans two channel
+    ranges, which kernel 6 cannot read without a copy."""
+
+    def forward(self, x: torch.Tensor, x2: Optional[torch.Tensor] = None):
+        a, off = gn_affine(x, self.weight, self.bias, self.groups, self.eps, x2, folded=True)
+        a, off = a.to(x.dtype), off.to(x.dtype)
+
+        def apply(t, a_c, off_c):
+            a_f, off_f = fold_channel_vec(a_c), fold_channel_vec(off_c)
+            return t * a_f[:, :, None, None] + off_f[:, :, None, None]
+
+        if x2 is None:
+            return apply(x, a, off)
+        c1 = x.shape[1] // 2
+        return apply(x, a[:, :c1], off[:, :c1]), apply(x2, a[:, c1:], off[:, c1:])
+
+
 def _conv3x3(c_in: int, c_out: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(c_in, c_out, 3, stride=stride, padding=1)
+
+
+class S2dConv(nn.Conv2d):
+    """A stride-1 3 x 3 or 1 x 1 ``nn.Conv2d`` (its weight and bias, of the same
+    names and shapes) over folded inputs, (B, 2I, H, J) -> (B, 2O, H, J),
+    through ``s2d_kernel`` of its weight (JAX's ``S2dConv``)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int):
+        super().__init__(c_in, c_out, kernel_size, padding=kernel_size // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, s2d_kernel(self.weight), fold_channel_vec(self.bias),
+                        padding=self.padding)
+
+
+class S2dConcatConv(S2dConv):
+    """``S2dConv`` of the virtual channel concat [x, x2] of two folded inputs
+    (JAX's ``S2dConcatConv``): a folded conv of each part by its slice of the
+    weight, summed."""
+
+    def forward(self, x: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        c1, w = x.shape[1] // 2, self.weight
+        y = F.conv2d(x, s2d_kernel(w[:, :c1]), fold_channel_vec(self.bias), padding=self.padding)
+        return y + F.conv2d(x2, s2d_kernel(w[:, c1:]), padding=self.padding)
+
+
+class S2dEntryConv(nn.Conv2d):
+    """The input conv (a 3 x 3 ``nn.Conv2d``'s weight and bias) from the plain
+    input to the folded layout in one conv of stride (1, 2) through
+    ``s2d_entry_kernel`` (JAX's ``S2dEntryConv``)."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__(c_in, c_out, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, s2d_entry_kernel(self.weight), fold_channel_vec(self.bias),
+                        stride=(1, 2), padding=1)
+
+
+class S2dExitConv(nn.Conv2d):
+    """The level-0 DownSample conv (a stride-2 3 x 3 ``nn.Conv2d``'s weight and
+    bias) from the folded layout to the plain stride-2 output through
+    ``s2d_exit_stride2_kernel`` (JAX's ``S2dExitConv``): H padded by one on
+    both sides, the blocks by one on the left only, then stride (2, 1)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(F.pad(x, (1, 0, 1, 1)), s2d_exit_stride2_kernel(self.weight), self.bias,
+                        stride=(2, 1))
 
 
 class ResBlock(nn.Module):
@@ -104,28 +193,45 @@ class ResBlock(nn.Module):
     concat [x, skip], which the fused modes never build (as the JAX package's
     ``ResBlock(skip=...)`` does) and the unfused ones build.
     ``skip_channels``: the skip tensor's channels in a decoder block, whose
-    in conv the "int8_xla" route quantizes as two parts."""
+    in conv the "int8_xla" route quantizes as two parts.
+    ``folded`` (level 0 under "s2d"; JAX's ``ResBlock._folded``): x, skip and
+    the output are folded, the norms ``FoldedGroupNorm32`` (the decoder's two
+    parts normalised apart, the concat never built), the convs their ``S2d``
+    forms; the other blocks of an "s2d" UNet run unfused."""
 
     def __init__(self, channels: int, d_t_emb: int, out_channels: Optional[int] = None,
-                 gn_conv: str = "unfused", skip_channels: int = 0):
+                 gn_conv: str = "unfused", skip_channels: int = 0, folded: bool = False):
         super().__init__()
         if gn_conv not in GN_CONV_MODES:
             raise ValueError(f"gn_conv must be one of {GN_CONV_MODES}, got {gn_conv!r}")
+        if folded and gn_conv != "s2d":
+            raise ValueError(f"a folded ResBlock is the s2d route's, not gn_conv={gn_conv!r}'s")
         out = out_channels or channels
         self.gn_conv = gn_conv
         self.skip_channels = skip_channels
-        self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), _conv3x3(channels, out))
+        self.folded = folded
+        norm = FoldedGroupNorm32 if folded else GroupNorm32
+
+        def conv(c_in, c_out, k, of_concat=False):  # "same" padding, stride 1
+            if not folded:
+                return nn.Conv2d(c_in, c_out, k, padding=k // 2)
+            return (S2dConcatConv if of_concat else S2dConv)(c_in, c_out, k)
+
+        concat = skip_channels > 0
+        self.in_layers = nn.Sequential(norm(channels), nn.SiLU(), conv(channels, out, 3, concat))
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(d_t_emb, out))
         # index 2 stands where the reference keeps its Dropout
-        self.out_layers = nn.Sequential(GroupNorm32(out), nn.SiLU(), nn.Identity(), _conv3x3(out, out))
-        self.skip_connection = nn.Identity() if out == channels else nn.Conv2d(channels, out, 1)
+        self.out_layers = nn.Sequential(norm(out), nn.SiLU(), nn.Identity(), conv(out, out, 3))
+        self.skip_connection = nn.Identity() if out == channels else conv(channels, out, 1, concat)
         # per conv: (weight data_ptr, int8 weight, scales[, int8 weight, scales
         # of the skip part])
         self._int8 = None
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.gn_conv == "unfused":
+        if self.folded:
+            return self._forward_folded(x, t_emb, skip)
+        if self.gn_conv in ("unfused", "s2d"):
             if skip is not None:
                 x = torch.cat([x, skip], dim=1)
             h = self.in_layers(x)
@@ -159,6 +265,25 @@ class ResBlock(nn.Module):
         c1 = x.shape[1]
         y = F.conv2d(x, sc.weight[:, :c1]) + F.conv2d(skip, sc.weight[:, c1:])
         return y + sc.bias.to(y.dtype)[:, None, None]
+
+    def _forward_folded(self, x, t_emb, skip):
+        norm, act, conv = self.in_layers
+        if skip is None:
+            h = conv(act(norm(x)))
+        else:
+            h1, h2 = norm(x, skip)
+            h = conv(act(h1), act(h2))
+        h = h + fold_channel_vec(self.emb_layers(t_emb).to(h.dtype))[:, :, None, None]
+        sc = self.skip_connection
+        if not isinstance(sc, nn.Identity):
+            res = sc(x) if skip is None else sc(x, skip)
+        elif skip is not None:
+            # the folded concat interleaves the parities: [x even, skip even, x odd, skip odd]
+            cx, ck = x.shape[1] // 2, skip.shape[1] // 2
+            res = torch.cat([x[:, :cx], skip[:, :ck], x[:, cx:], skip[:, ck:]], dim=1)
+        else:
+            res = x
+        return res + self.out_layers(h)
 
     def _forward_int8_xla(self, x, t_emb, skip):
         """The unfused block with its two 3x3 convs as int8 products (JAX's
@@ -312,20 +437,28 @@ class SpatialTransformer(nn.Module):
 
 
 class DownSample(nn.Module):
-    def __init__(self, channels: int):
+    """``folded_input``: level 0's exit under "s2d", folded in, plain out."""
+
+    def __init__(self, channels: int, folded_input: bool = False):
         super().__init__()
-        self.op = _conv3x3(channels, channels, stride=2)
+        self.op = S2dExitConv(channels) if folded_input else _conv3x3(channels, channels, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)
 
 
 class UpSample(nn.Module):
-    def __init__(self, channels: int):
+    """``fold_output``: the way back into level 0 under "s2d", plain in, the
+    upsample made in the folded layout and a folded conv."""
+
+    def __init__(self, channels: int, fold_output: bool = False):
         super().__init__()
-        self.conv = _conv3x3(channels, channels)
+        self.fold_output = fold_output
+        self.conv = S2dConv(channels, channels, 3) if fold_output else _conv3x3(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fold_output:
+            return self.conv(upsample2x_s2d(to_s2d(x)))
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
@@ -353,8 +486,10 @@ class TimestepEmbedSequential(nn.Sequential):
 class UNetModel(nn.Module):
     """The epsilon-prediction UNet: ``x`` (B, in_channels, H, W), ``time_steps``
     (B,), ``cond`` (B, n_cond, d_cond) -> (B, out_channels, H, W) in fp32.
-    ``gn_conv``: "unfused", "fused", "int8" or "int8_xla" (see the module's
-    docstring)."""
+    ``gn_conv``: "unfused", "fused", "int8", "int8_xla" or "s2d" (see the
+    module's docstring). "s2d" is refused where level 0 attends (JAX's
+    ``POLYFF_S2D`` gate falls back to the plain route there) and, in the
+    forward, for a width the folds do not divide."""
 
     def __init__(
         self,
@@ -370,8 +505,14 @@ class UNetModel(nn.Module):
         gn_conv: str = "unfused",
     ):
         super().__init__()
+        if gn_conv == "s2d" and 0 in attention_levels:
+            raise ValueError("gn_conv='s2d' folds level 0, which must not attend (JAX's "
+                             "POLYFF_S2D gate runs such a UNet unfolded)")
         self.channels = channels
+        self.s2d = gn_conv == "s2d"
         levels = len(channel_multipliers)
+        # the folds halve the width at level 0 and at the upsample into it
+        self.width_multiple = 2 if levels == 1 else 4
         d_time_emb = channels * 4
         self.time_embed = nn.Sequential(
             nn.Linear(channels, d_time_emb), nn.SiLU(), nn.Linear(d_time_emb, d_time_emb)
@@ -380,22 +521,24 @@ class UNetModel(nn.Module):
         def transformer(ch):
             return SpatialTransformer(ch, n_heads, tf_layers, d_cond)
 
-        self.input_blocks = nn.ModuleList(
-            [TimestepEmbedSequential(_conv3x3(in_channels, channels))]
-        )
+        s2d = self.s2d
+        entry = S2dEntryConv(in_channels, channels) if s2d else _conv3x3(in_channels, channels)
+        self.input_blocks = nn.ModuleList([TimestepEmbedSequential(entry)])
         skip_channels = [channels]
         channels_list = [channels * m for m in channel_multipliers]
         ch = channels
         for i in range(levels):
             for _ in range(n_res_blocks):
-                layers = [ResBlock(ch, d_time_emb, channels_list[i], gn_conv)]
+                layers = [ResBlock(ch, d_time_emb, channels_list[i], gn_conv,
+                                   folded=s2d and i == 0)]
                 ch = channels_list[i]
                 if i in attention_levels:
                     layers.append(transformer(ch))
                 self.input_blocks.append(TimestepEmbedSequential(*layers))
                 skip_channels.append(ch)
             if i != levels - 1:
-                self.input_blocks.append(TimestepEmbedSequential(DownSample(ch)))
+                self.input_blocks.append(
+                    TimestepEmbedSequential(DownSample(ch, folded_input=s2d and i == 0)))
                 skip_channels.append(ch)
 
         self.middle_block = TimestepEmbedSequential(
@@ -407,15 +550,18 @@ class UNetModel(nn.Module):
         for i in reversed(range(levels)):
             for j in range(n_res_blocks + 1):
                 skip_ch = skip_channels.pop()
-                layers = [ResBlock(ch + skip_ch, d_time_emb, channels_list[i], gn_conv, skip_ch)]
+                layers = [ResBlock(ch + skip_ch, d_time_emb, channels_list[i], gn_conv, skip_ch,
+                                   folded=s2d and i == 0)]
                 ch = channels_list[i]
                 if i in attention_levels:
                     layers.append(transformer(ch))
                 if i != 0 and j == n_res_blocks:
-                    layers.append(UpSample(ch))
+                    layers.append(UpSample(ch, fold_output=s2d and i == 1))
                 self.output_blocks.append(TimestepEmbedSequential(*layers))
 
-        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), _conv3x3(ch, out_channels))
+        self.out = nn.Sequential(
+            FoldedGroupNorm32(ch) if s2d else GroupNorm32(ch), nn.SiLU(),
+            S2dConv(ch, out_channels, 3) if s2d else _conv3x3(ch, out_channels))
 
     def forward(self, x: torch.Tensor, time_steps: torch.Tensor, cond: torch.Tensor,
                 cfg_fork: bool = False) -> torch.Tensor:
@@ -424,6 +570,10 @@ class UNetModel(nn.Module):
         skip are tiled once, just before the input half's first
         SpatialTransformer, or before the middle block where no input level
         attends; the output has batch 2B."""
+        if self.s2d and x.shape[-1] % self.width_multiple:
+            raise ValueError(f"gn_conv='s2d' needs a width divisible by {self.width_multiple} "
+                             f"(the folds halve it at level 0 and at the upsample into it), "
+                             f"got {x.shape[-1]}")
         dtype = self.out[2].weight.dtype
         t_emb = self.time_embed(timestep_embedding(time_steps, self.channels).to(dtype))
         h = x.to(dtype)
@@ -445,7 +595,8 @@ class UNetModel(nn.Module):
         h = self.middle_block(h, t_emb, cond)
         for block in self.output_blocks:
             h = block(h, t_emb, cond, skip=skips.pop())
-        return self.out(h).float()
+        h = self.out(h)
+        return (from_s2d(h) if self.s2d else h).float()
 
     def prepare_gn_conv(self) -> None:
         """Make each ResBlock's int8 weights from its weights as they are now:

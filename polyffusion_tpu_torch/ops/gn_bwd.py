@@ -20,6 +20,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .s2d import unfold_channel_sums
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHANNELS_PER_GROUP = 64  # the kernel's shared-memory tables
 # the kernel's split of one (item, group): the shared memory a CTA should fill
@@ -72,19 +74,27 @@ def gn_primal(
 
 def gn_affine(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
-    x2: Optional[torch.Tensor] = None,
+    x2: Optional[torch.Tensor] = None, folded: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The GroupNorm of ``x`` as its fp32 per-(batch, channel) affine (a, off),
     y = x * a + off, unrounded: the input of the fused GroupNorm-SiLU-conv
     kernel (``ops/fused_gn_conv.py``), as the JAX package's
     ``FP32GroupNorm(return_affine=True)`` gives it. With ``x2`` the statistics
     are those of the virtual channel concat [x, x2] (never built), and a and
-    off span C1 + C2 channels. Differentiable by autograd."""
-    s1, s2 = _channel_sums(x)
+    off span C1 + C2 channels. ``folded``: x and x2 are space-to-depth folded
+    (``ops/s2d.py``), and a and off are per unfolded channel (JAX's
+    ``FP32GroupNorm(folded=True)``). Differentiable by autograd."""
+
+    def sums(t):
+        s1, s2 = _channel_sums(t)
+        return (unfold_channel_sums(s1), unfold_channel_sums(s2)) if folded else (s1, s2)
+
+    s1, s2 = sums(x)
     if x2 is not None:
-        t1, t2 = _channel_sums(x2)
+        t1, t2 = sums(x2)
         s1, s2 = torch.cat([s1, t1], dim=1), torch.cat([s2, t2], dim=1)
-    a, off, _, _ = _affine32(s1, s2, x[0, 0].numel(), weight, bias, groups, eps)
+    n_spatial = x[0, 0].numel() * (2 if folded else 1)
+    a, off, _, _ = _affine32(s1, s2, n_spatial, weight, bias, groups, eps)
     return a, off
 
 

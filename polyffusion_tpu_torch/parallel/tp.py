@@ -288,10 +288,14 @@ def shard_state(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
     """In place: the UNet ``module``'s sites become the tp modules over
     ``mesh``'s tp axis (its weights must be the same on every rank). Refused
     for a site through the fused GroupNorm-SiLU-conv kernels or the XLA int8
-    route."""
+    route, and for the space-to-depth level 0."""
     if TP not in (mesh.mesh_dim_names or ()):
         return module
     for m in module.modules():
+        if isinstance(m, ResBlock) and m.gn_conv == "s2d":
+            raise NotImplementedError(
+                "gn_conv='s2d' under tensor parallelism (ROADMAP item 22): the folded kernels "
+                "over a channel shard are not ported; use gn_conv='unfused'")
         if isinstance(m, ResBlock) and m.gn_conv == "int8_xla":
             raise NotImplementedError(
                 "gn_conv='int8_xla' under tensor parallelism (ROADMAP item 21): the "

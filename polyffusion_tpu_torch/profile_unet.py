@@ -1,7 +1,7 @@
 """Where the device time of one sampling step goes: a warm full-width
 ``sdf_chd8bar`` UNet eval in bf16 at the main path's CFG batch, on one GPU.
 
-    python -m polyffusion_tpu_torch.profile_unet [--gn_conv unfused|fused|int8]
+    python -m polyffusion_tpu_torch.profile_unet [--gn_conv unfused|fused|int8|int8_xla|s2d]
 
 Prints the eval's time from CUDA events, then a ``torch.profiler`` breakdown of
 the same evals: device time per kernel class and the top kernels, and the share

@@ -104,7 +104,7 @@ class SDFTask:
         (``utils/precision.py``) after any ``load_unet_state``, unless
         ``training``: then they stay fp32, the trainer's master weights.
         ``gn_conv``: the UNet's GroupNorm-SiLU-conv route ("unfused", "fused",
-        or for sampling "int8" or "int8_xla", whose int8 weights are made
+        "s2d", or for sampling "int8" or "int8_xla", whose int8 weights are made
         whenever the weights are placed). ``bf16_params``: cast for sampling whatever the
         preset's ``bf16`` says (JAX ``InferenceSession(bf16_params=True)``;
         the port's modules then compute in bf16)."""
@@ -136,7 +136,7 @@ class SDFTask:
                                  f"{self.use_enc} needs {name}")
         if training and gn_conv in INT8_MODES:
             raise ValueError(f"gn_conv={gn_conv!r} is sampling-only (no gradient): train with "
-                             "'unfused' or 'fused'")
+                             "'unfused', 'fused' or 's2d'")
         self.gn_conv = gn_conv
         self.unet = self.make_unet()
         self.chord_enc, self.txt_enc, self.pnotree_enc = chord_enc, txt_enc, pnotree_enc

@@ -399,3 +399,14 @@ def test_cli_cfg_fork(cli_work, tmp_path, monkeypatch):
     assert forked.shape == (1, 2, 128, 128)
     np.testing.assert_allclose(forked, plain, atol=FORK_ATOL, rtol=0)
     assert any(f.endswith(".mid") for f in os.listdir(tmp_path / "fork"))
+
+
+def test_cli_s2d(cli_work, tmp_path):
+    """``--gn_conv s2d``, alone and with ``--cfg_fork``, answers the DDIM
+    request with the unfused route's roll (fp32, the DDIM tolerance)."""
+    (plain,) = cli(cli_work, tmp_path / "plain")
+    for name, extra in (("s2d", ()), ("s2d_fork", ("--cfg_fork",))):
+        (roll,) = cli(cli_work, tmp_path / name, "--gn_conv", "s2d", *extra)
+        assert roll.shape == (1, 2, 128, 128) and np.isfinite(roll).all()
+        np.testing.assert_allclose(roll, plain, atol=ATOL, rtol=RTOL)
+        assert any(f.endswith(".mid") for f in os.listdir(tmp_path / name))

@@ -128,3 +128,39 @@ def test_clis_take_gn_conv(tmp_path):
     unfused, fused = sample("unfused"), sample("fused")
     np.testing.assert_allclose(fused, unfused, atol=2e-3, rtol=1e-3)
     sample("int8")
+
+
+def test_training_cli_takes_s2d(tmp_path):
+    """``main.py --gn_conv s2d`` trains: from the same seed its first step's
+    loss is the unfused route's (the same weights and draws; the folded convs
+    sum in another order), and its checkpoint loads into an unfused UNet."""
+    import json
+
+    from polyffusion_tpu_torch.main import main as train_main
+    from polyffusion_tpu_torch.models import ChordEncoder, init_weights_
+    from polyffusion_tpu_torch.models.unet import UNetModel
+
+    data, pre = tmp_path / "songs", tmp_path / "pre"
+    data.mkdir(), pre.mkdir()
+    for i in range(3):
+        _song(str(data / f"song{i}.npz"), i)
+    enc = init_weights_(ChordEncoder(36, 16, 512), torch.Generator().manual_seed(3))
+    torch.save({"model": {f"chord_enc.{k}": v for k, v in enc.state_dict().items()}},
+               str(pre / "chd8bar.pt"))
+    loss = {}
+    for mode in ("unfused", "s2d"):
+        run = str(tmp_path / mode)
+        args = ["--model", "sdf_chd8bar", "--output_dir", run, "--data_dir", str(data),
+                "--pretrained_dir", str(pre), "--device", "cpu", "--batch_size", "2",
+                "--max_steps", "1", "--log_every", "1", "--gn_conv", mode]
+        for kv in ("channels=32", "channel_multipliers=[1,1,1,1]", "attention_levels=[]",
+                   "n_res_blocks=1", "chd_hidden_dim=16", "bf16=false", "n_steps=10"):
+            args += ["--set", kv]
+        assert train_main(args).step == 1
+        (rec,) = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))
+                  if "train/loss" in line]
+        loss[mode] = rec["train/loss"]
+    np.testing.assert_allclose(loss["s2d"], loss["unfused"], rtol=1e-5)
+    ckpt = torch.load(os.path.join(tmp_path, "s2d", "chkpts", "last.pt"), weights_only=True)
+    UNetModel(channels=32, channel_multipliers=(1, 1, 1, 1), attention_levels=(),
+              n_res_blocks=1).load_state_dict(ckpt["params"], strict=True)
