@@ -1,0 +1,7 @@
+"""The card's idle share over the window, in % (``readers.idle_share``)."""
+
+from cardbench import readers
+
+
+def read(ctx):
+    return readers.idle_share(ctx)
