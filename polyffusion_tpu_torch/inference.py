@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .config import Params, load_params
 from .convert import DDPM_PREFIXES, REFERENCE_PREFIXES, reference_unet_state
 from .data.dataset import SongNpz
@@ -157,6 +158,12 @@ def load_unet_params(chkpt_path: str, use_ema: bool = False, prefixes=REFERENCE_
 
 
 # -- the session --------------------------------------------------------------------
+
+
+def _pull(t: torch.Tensor) -> np.ndarray:
+    """A result to the host: on the card this waits for every launch before it."""
+    with tracing.span("inference.pull"):
+        return t.cpu().numpy()
 
 
 def _outside_inference_mode(apply_fn):
@@ -335,44 +342,45 @@ class InferenceSession:
         each forcing its first 4 bars to the previous window's last 4
         (``cond_mid`` holds the B-1 mid-window conditions); a leading pieces
         axis on ``cond`` runs P pieces at batch P (``_predict_autoreg``)."""
-        if self.distilled_scale is not None and uncond_scale != 1.0 and not self._scale_warned:
-            self._scale_warned = True
-            print(
-                f"[inference] note: this student bakes in CFG scale "
-                f"{self.distilled_scale}; sample it at --uncond_scale 1 "
-                f"(got {uncond_scale}: that guidance applies ON TOP)"
-            )
-        if autoreg:
-            if cond_mid is None:
-                raise ValueError("autoreg needs the mid-window conditions")
-            if np.ndim(cond) == 4:  # (P, B, N, d): piece-batched
-                return self._predict_autoreg(cond, cond_mid, uncond_scale, orig, mask, noise)
-            out = self._predict_autoreg(
-                self._tensor(cond)[None],
-                self._tensor(cond_mid)[None],
-                uncond_scale,
-                None if orig is None else np.asarray(orig)[None],
-                None if mask is None else np.asarray(mask)[None],
-                None if noise is None else self._tensor(noise)[None],
-            )
-            return out[0]
+        with tracing.span("inference.predict"):
+            if self.distilled_scale is not None and uncond_scale != 1.0 and not self._scale_warned:
+                self._scale_warned = True
+                print(
+                    f"[inference] note: this student bakes in CFG scale "
+                    f"{self.distilled_scale}; sample it at --uncond_scale 1 "
+                    f"(got {uncond_scale}: that guidance applies ON TOP)"
+                )
+            if autoreg:
+                if cond_mid is None:
+                    raise ValueError("autoreg needs the mid-window conditions")
+                if np.ndim(cond) == 4:  # (P, B, N, d): piece-batched
+                    return self._predict_autoreg(cond, cond_mid, uncond_scale, orig, mask, noise)
+                out = self._predict_autoreg(
+                    self._tensor(cond)[None],
+                    self._tensor(cond_mid)[None],
+                    uncond_scale,
+                    None if orig is None else np.asarray(orig)[None],
+                    None if mask is None else np.asarray(mask)[None],
+                    None if noise is None else self._tensor(noise)[None],
+                )
+                return out[0]
 
-        cond = self._tensor(cond)
-        b = cond.shape[0]
-        self._check_batch(b)
-        h, w, c = self.cfg.img_h, self.cfg.img_w, self.cfg.out_channels
-        uncond_cond = -torch.ones_like(cond)
-        if orig is None or mask is None:
-            orig = np.zeros((b, c, h, w), np.float32)
-            mask = np.zeros_like(orig)
-        orig_nhwc = self._tensor(orig).permute(0, 2, 3, 1)
-        mask_nhwc = self._tensor(mask).permute(0, 2, 3, 1)
-        if noise is None:
-            noise = torch.randn((b, h, w, c), generator=self.generator, device=self.device)
-        noise = self._tensor(noise)
-        xt = self._q_sample_start(orig_nhwc, noise)
-        gen = self._paint(xt, cond, orig_nhwc, mask_nhwc, noise, uncond_cond, uncond_scale)
-        return gen.permute(0, 3, 1, 2).cpu().numpy()
+            cond = self._tensor(cond)
+            b = cond.shape[0]
+            self._check_batch(b)
+            h, w, c = self.cfg.img_h, self.cfg.img_w, self.cfg.out_channels
+            uncond_cond = -torch.ones_like(cond)
+            if orig is None or mask is None:
+                orig = np.zeros((b, c, h, w), np.float32)
+                mask = np.zeros_like(orig)
+            orig_nhwc = self._tensor(orig).permute(0, 2, 3, 1)
+            mask_nhwc = self._tensor(mask).permute(0, 2, 3, 1)
+            if noise is None:
+                noise = torch.randn((b, h, w, c), generator=self.generator, device=self.device)
+            noise = self._tensor(noise)
+            xt = self._q_sample_start(orig_nhwc, noise)
+            gen = self._paint(xt, cond, orig_nhwc, mask_nhwc, noise, uncond_cond, uncond_scale)
+            return _pull(gen.permute(0, 3, 1, 2))
 
     def _predict_autoreg(self, conds, cond_mids, uncond_scale: float, origs=None, masks=None,
                          noise=None) -> np.ndarray:
@@ -421,7 +429,7 @@ class InferenceSession:
                 gen.append(x0[:, :half])
             prev_half = x0[:, half:]
             gen.append(prev_half)
-        return torch.stack(gen, dim=1).permute(0, 1, 4, 2, 3).cpu().numpy()
+        return _pull(torch.stack(gen, dim=1).permute(0, 1, 4, 2, 3))
 
     # -- user-facing ops --------------------------------------------------------
 

@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import tracing
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # the kernels' query and key tile: T must be a multiple of it
 HEAD_DIMS = (64, 128)
@@ -207,6 +209,7 @@ def packed_attention_bwd(
 
 
 packed_attention_bwd.launches = 0
+tracing.register("ops.packed_attention_bwd.launches", packed_attention_bwd, "launches")
 
 
 class _PackedAttention(torch.autograd.Function):
@@ -246,6 +249,7 @@ def packed_self_attention(
 
 
 packed_self_attention.launches = 0
+tracing.register("ops.packed_self_attention.launches", packed_self_attention, "launches")
 
 
 # -- head-major (BH, T, D) -------------------------------------------------------
@@ -343,3 +347,4 @@ def fused_self_attention(
 
 
 fused_self_attention.launches = 0
+tracing.register("ops.fused_self_attention.launches", fused_self_attention, "launches")

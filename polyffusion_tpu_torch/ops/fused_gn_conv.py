@@ -42,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from .quant import quantize_weight
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -353,3 +354,9 @@ gn_silu_conv3x3.two_input_launches = 0
 gn_silu_conv3x3_q.launches = 0
 gn_silu_conv3x3_q.two_input_launches = 0
 gn_silu_amax.launches = 0
+tracing.register("ops.gn_silu_conv3x3.launches", gn_silu_conv3x3, "launches")
+tracing.register("ops.gn_silu_conv3x3.two_input_launches", gn_silu_conv3x3, "two_input_launches")
+tracing.register("ops.gn_silu_conv3x3_q.launches", gn_silu_conv3x3_q, "launches")
+tracing.register("ops.gn_silu_conv3x3_q.two_input_launches", gn_silu_conv3x3_q,
+                 "two_input_launches")
+tracing.register("ops.gn_silu_amax.launches", gn_silu_amax, "launches")

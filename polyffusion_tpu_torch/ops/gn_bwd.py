@@ -20,6 +20,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from .s2d import unfold_channel_sums
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -251,6 +252,7 @@ def group_norm_bwd(
 
 
 group_norm_bwd.launches = 0
+tracing.register("ops.group_norm_bwd.launches", group_norm_bwd, "launches")
 
 
 class _GroupNormAffine(torch.autograd.Function):

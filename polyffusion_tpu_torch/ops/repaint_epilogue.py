@@ -23,6 +23,8 @@ from typing import Sequence
 
 import torch
 
+from .. import tracing
+
 _entry = []  # the C entry point, with its argument types set once
 
 
@@ -113,3 +115,4 @@ def fused_repaint_epilogue(
 
 
 fused_repaint_epilogue.launches = 0
+tracing.register("ops.fused_repaint_epilogue.launches", fused_repaint_epilogue, "launches")

@@ -13,8 +13,10 @@ Endpoints (JSON in, JSON out):
 
     GET  /healthz   -> {"ok": true, "model": ..., "warm": true}
                        (500 with "warm_error" once the warmup has died)
-    GET  /stats     -> request and sample counts, the last device pass's ms,
-                       the warmed scales and, with a queue, coalesced_batches
+    GET  /stats     -> request and sample counts, the last pass's device_ms,
+                       the warmed scales, with a queue coalesced_batches, and
+                       under "counters" every counter of ``tracing.py``: the
+                       worker's passes and padded rows, the kernels' launches
     POST /generate  -> body {"num": 4, "uncond_scale": 1.0, "seed": 123,
                              "chord": [...one (32, 36) one-hot per sample...]}
                        (all optional); reply {"midi_b64": ..., "integrity_err":
@@ -23,6 +25,14 @@ Endpoints (JSON in, JSON out):
                                  "seed": ..., "chord": [...one (length * 32, 36)
                                  matrix per piece...]}
                        reply {"pieces": [{"midi_b64": ...}, ...], ...}
+
+``device_ms`` (the replies' and ``/stats``' ``last_device_ms``) is the
+host's milliseconds of a pass including the pull of its result to the host:
+the card's work and whatever the host's launches add to it, not a device
+clock. The pass's span is ``serve.pass``; a request's other spans are
+``serve.encode``, ``serve.queued``, ``serve.package`` and ``serve.reply``
+(``tracing.py``), the last from the dispatcher's hand-over to the caller's
+thread waking.
 
 A malformed request gets 400, a failure 500. ``chord`` conditions a chord
 model; without it the condition is -1s (unconditional), as the reference's
@@ -48,6 +58,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .config import load_params
 from .inference import (
     InferenceSession,
@@ -81,6 +92,8 @@ class GenerationWorker:
         self.batch = batch_size
         self.requests = 0
         self.samples = 0
+        self.passes = 0
+        self.padded_rows = 0  # rows of the passes' padded batches that no caller asked for
         self.last_device_ms = None
         self.warm = False
         self.warm_error = None  # set if the warmup thread dies
@@ -90,6 +103,8 @@ class GenerationWorker:
         # The counters have their own lock, so /stats never waits on a pass.
         self._lock = threading.Lock()
         self._stats_lock = threading.Lock()
+        for attr in ("requests", "samples", "passes", "padded_rows", "last_device_ms"):
+            tracing.register(f"serve.worker.{attr}", self, attr)
 
     @classmethod
     def from_args(cls, args) -> "GenerationWorker":
@@ -165,11 +180,13 @@ class GenerationWorker:
         return self._encode(self._chords(chord, (num, 32, 36)))
 
     def _sample(self, cond, uncond_scale: float, seed=None, cond_mid=None,
-                autoreg: bool = False):
+                autoreg: bool = False, rids=None):
         """One device pass on a leading-axis-padded cond; returns (gen,
-        device_ms). Serves the 8-bar path and the long-form one (``cond_mid``
-        and ``autoreg``: the padded axis is then the pieces axis). A seed
-        reseeds the session's generator, under the device lock."""
+        device_ms), the host ms of the pass with its pull to the host. Serves
+        the 8-bar path and the long-form one (``cond_mid`` and ``autoreg``:
+        the padded axis is then the pieces axis). A seed reseeds the
+        session's generator, under the device lock. ``rids``: the request ids
+        the pass serves, for its span."""
         num = cond.shape[0]
         if num < self.batch:  # pad to the warmed batch
             def pad(a):
@@ -178,21 +195,31 @@ class GenerationWorker:
             cond = pad(cond)
             if cond_mid is not None:
                 cond_mid = pad(cond_mid)
-        with self._lock, torch.inference_mode():
-            if seed is not None:
-                self.session.generator.manual_seed(int(seed))
-            t0 = time.perf_counter()
-            gen = self.session.predict(cond, cond_mid, uncond_scale=uncond_scale,
-                                       autoreg=autoreg)[:num]
-            device_ms = (time.perf_counter() - t0) * 1000.0
+        with tracing.span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            with torch.inference_mode():
+                if seed is not None:
+                    self.session.generator.manual_seed(int(seed))
+                with tracing.span("serve.pass", rows=num, padded=self.batch - num, rids=rids):
+                    t0 = time.perf_counter()
+                    gen = self.session.predict(cond, cond_mid, uncond_scale=uncond_scale,
+                                               autoreg=autoreg)[:num]
+                    device_ms = (time.perf_counter() - t0) * 1000.0
+        finally:
+            self._lock.release()
         with self._stats_lock:
             self.last_device_ms = device_ms
         return gen, device_ms
 
     def _count(self, n_requests: int, n_samples: int):
+        """One pass served ``n_requests`` asking for ``n_samples`` rows (or
+        pieces) of its padded batch."""
         with self._stats_lock:
             self.requests += n_requests
             self.samples += n_samples
+            self.passes += 1
+            self.padded_rows += self.batch - n_samples
 
     @staticmethod
     def _package(gen, device_ms: float, batched_with: int = 0):
@@ -288,6 +315,8 @@ class RequestQueue:
         self.timeout_s = timeout_s
         self.q = queue.Queue()
         self.batches = 0  # device passes that served more than one request
+        self.qid = tracing.new_id()  # tells this queue's spans from another's
+        tracing.register("serve.queue.batches", self, "batches")
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -299,17 +328,23 @@ class RequestQueue:
     def submit(self, num: int, uncond_scale: float, seed=None, chord=None):
         """Validate and encode (here, so a malformed request fails alone),
         enqueue, and wait for the result."""
-        cond = self.worker._cond(num, chord)
-        return self._enqueue(num, uncond_scale, seed, cond=cond)
+        rid = tracing.new_id()
+        with tracing.span("serve.encode", rid=rid):
+            cond = self.worker._cond(num, chord)
+        return self._enqueue(num, uncond_scale, seed, cond, rid)
 
     def submit_long(self, length: int, num: int, uncond_scale: float, seed=None, chord=None):
         """The long-form ``submit``: merges on the pieces axis."""
-        cond, cond_mid = self.worker._long_conds(length, num, chord)
-        return self._enqueue(num, uncond_scale, seed, cond=cond, cond_mid=cond_mid,
+        rid = tracing.new_id()
+        with tracing.span("serve.encode", rid=rid):
+            cond, cond_mid = self.worker._long_conds(length, num, chord)
+        return self._enqueue(num, uncond_scale, seed, cond, rid, cond_mid=cond_mid,
                              length=int(length))
 
-    def _enqueue(self, num, scale, seed, cond, cond_mid=None, length=None):
+    def _enqueue(self, num, scale, seed, cond, rid, cond_mid=None, length=None):
         item = {
+            "rid": rid,
+            "t_enq": time.time_ns(),  # the tracing clock: serve.queued starts here
             "num": int(num),
             "scale": float(scale),
             "seed": seed,
@@ -317,12 +352,15 @@ class RequestQueue:
             "cond_mid": cond_mid,
             "length": length,  # None: an 8-bar /generate
             "done": threading.Event(),
+            "t_reply": None,  # set with done: serve.reply runs from there to this thread's waking
             "result": None,
             "error": None,
         }
         self.q.put(item)
         if not item["done"].wait(self.timeout_s):
             raise TimeoutError(f"no result within {self.timeout_s} s")
+        if item["t_reply"] is not None:
+            tracing.record("serve.reply", item["t_reply"], time.time_ns(), rid=rid)
         if item["error"] is not None:
             raise item["error"]
         return item["result"]
@@ -338,12 +376,19 @@ class RequestQueue:
         )
 
     def _loop(self):
+        """Form groups and run them. A request's ``serve.queued`` runs from its
+        enqueue to its group's closing; ``serve.idle`` is the wait on an empty
+        queue, ``serve.coalesce`` the group's forming from its first request."""
         held = None  # a request that did not fit, to lead the next group
         while True:
-            first = held if held is not None else self.q.get()
-            held = None
+            if held is None:
+                with tracing.span("serve.idle"):
+                    first = self.q.get()
+            else:
+                first, held = held, None
             if first is _STOP:
                 return
+            t_first = time.time_ns()
             group = [first]
             if first["seed"] is None:
                 deadline = time.monotonic() + self.coalesce_s
@@ -362,6 +407,12 @@ class RequestQueue:
                     else:
                         held = nxt
                         break
+            t_closed = time.time_ns()
+            rids = [it["rid"] for it in group]
+            tracing.record("serve.coalesce", t_first, t_closed, rids=rids, queue=self.qid)
+            for it in group:
+                tracing.record("serve.queued", it["t_enq"], t_closed, rid=it["rid"],
+                               queue=self.qid)
             self._run(group)
 
     def _run(self, group):
@@ -373,7 +424,8 @@ class RequestQueue:
             if length is not None:  # long form: merged on the pieces axis
                 cond_mid = np.concatenate([it["cond_mid"] for it in group], axis=0)
             gen, device_ms = w._sample(cond, group[0]["scale"], group[0]["seed"],
-                                       cond_mid=cond_mid, autoreg=length is not None)
+                                       cond_mid=cond_mid, autoreg=length is not None,
+                                       rids=[it["rid"] for it in group])
         except BaseException as e:  # a failed pass: fail every caller, keep serving
             for it in group:
                 it["error"] = e if isinstance(e, Exception) else RuntimeError(str(e))
@@ -387,13 +439,15 @@ class RequestQueue:
             sl = gen[off:off + it["num"]]
             off += it["num"]
             try:
-                if length is not None:
-                    it["result"] = w._package_long(sl, length, device_ms,
-                                                   batched_with=len(group) - 1)
-                else:
-                    it["result"] = w._package(sl, device_ms, batched_with=len(group) - 1)
+                with tracing.span("serve.package", rid=it["rid"], samples=it["num"]):
+                    if length is not None:
+                        it["result"] = w._package_long(sl, length, device_ms,
+                                                       batched_with=len(group) - 1)
+                    else:
+                        it["result"] = w._package(sl, device_ms, batched_with=len(group) - 1)
             except Exception as e:  # packaging fails per caller
                 it["error"] = e
+            it["t_reply"] = time.time_ns()
             it["done"].set()
 
 
@@ -437,6 +491,7 @@ def make_handler(worker: GenerationWorker, rqueue: Optional[RequestQueue] = None
                     }
                 if rqueue is not None:
                     stats["coalesced_batches"] = rqueue.batches
+                stats["counters"] = tracing.counters()
                 self._reply(200, stats)
             else:
                 self._reply(404, {"error": "unknown path"})

@@ -16,7 +16,8 @@
   ``weights_best.pt`` and ``info.txt`` (reference ``learner.py:104-124``);
 - ``profile_steps`` (START, STOP): a ``torch.profiler`` window over those
   steps, written as a Chrome trace under ``<output_dir>/profile/`` once it
-  closes;
+  closes; each step in it is a ``train_step <n>`` span (``tracing.py``), a
+  range of the trace;
 - on a mesh (``parallel/``): the state placed by the policy (replicated over
   dp, or ZeRO-3 sharded with the ``fsdp`` config key, or the tp layout on a
   tp mesh). Every rank computes; only rank 0 writes the metrics log,
@@ -37,6 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import yaml
 
+from .. import tracing
 from ..config import Params, params_differ, save_params
 from ..models.unet import UNetModel
 from ..parallel.mesh import barrier, rank
@@ -265,7 +267,7 @@ class Trainer:
                 if self.profile_steps and state.step == self.profile_steps[0]:
                     self._start_profile()
                 if self._profiler is not None:
-                    with torch.profiler.record_function(f"train_step {state.step}"):
+                    with tracing.span(f"train_step {state.step}"):
                         metrics = self.train_step(state, batch, seed,
                                                   sched=self._sched(state.step))
                     if state.step == self.profile_steps[1]:

@@ -21,6 +21,7 @@ from polyffusion_tpu.config import Params as JaxParams
 from polyffusion_tpu.models.encoders import ChordEncoder as JaxChordEncoder
 from polyffusion_tpu.serve import GenerationWorker as JaxWorker
 from polyffusion_tpu.tasks import SDFTask as JaxSDFTask
+from polyffusion_tpu_torch import tracing
 from polyffusion_tpu_torch.config import Params
 from polyffusion_tpu_torch.convert import chord_encoder_state_from_jax, unet_state_from_jax
 from polyffusion_tpu_torch.inference import InferenceSession
@@ -368,6 +369,61 @@ def test_queue_http_concurrent_clients(worker, rqueue):
             assert status == 200 and body["num"] == 1
         status, stats = srv.call("GET", "/stats")
         assert stats["coalesced_batches"] >= 1
+
+
+@pytest.mark.parametrize("long_form", [False, True], ids=["generate", "generate_long"])
+def test_a_queued_request_leaves_its_spans_in_order_under_one_id(worker, rqueue, long_form):
+    """encode, queued, pass, package and reply follow one another under the
+    request's id, and with the wait from the pass's end to the reply's end
+    (the caller's waking) they sum to the caller's own time in ``submit``
+    within 5 ms."""
+    rq = rqueue(50.0)
+    before = (worker.passes, worker.padded_rows)
+    got = {}
+
+    def call():
+        got["thread"] = threading.get_ident()
+        t0 = time.time_ns()
+        if long_form:
+            got["reply"] = rq.submit_long(length=2, num=1, uncond_scale=1.0)
+        else:
+            got["reply"] = rq.submit(num=1, uncond_scale=1.0)
+        got["t"] = (t0, time.time_ns())
+
+    _in_threads([call])
+    t0, t1 = got["t"]
+    recs = [r for r in tracing.snapshot() if r.start_ns >= t0 and r.end_ns <= t1]
+    (enc,) = [r for r in recs if r.name == "serve.encode" and r.thread == got["thread"]]
+    mine = {r.name: r for r in recs if r.rid == enc.rid}
+    (pas,) = [r for r in recs if r.name == "serve.pass" and enc.rid in r.attrs["rids"]]
+    queued, package, reply = mine["serve.queued"], mine["serve.package"], mine["serve.reply"]
+    assert queued.attrs["queue"] == rq.qid and package.attrs["samples"] == 1
+    assert pas.attrs["rows"] == 1 and pas.attrs["padded"] == worker.batch - 1
+    stamps = [enc.start_ns, enc.end_ns, queued.start_ns, queued.end_ns, pas.start_ns,
+              pas.end_ns, package.start_ns, package.end_ns, reply.start_ns, reply.end_ns]
+    assert stamps == sorted(stamps)
+    assert queued.thread == pas.thread == package.thread != enc.thread == reply.thread
+    # the pass's span holds the host clock that device_ms reads
+    assert got["reply"]["device_ms"] <= pas.ms + 0.05
+    pieces = enc.ms + queued.ms + pas.ms + (reply.end_ns - pas.end_ns) / 1e6
+    assert abs((t1 - t0) / 1e6 - pieces) < 5.0, ((t1 - t0) / 1e6, pieces)
+    assert (worker.passes, worker.padded_rows) == (before[0] + 1, before[1] + worker.batch - 1)
+
+
+@pytest.mark.parametrize("queued", [False, True], ids=["direct", "queued"])
+def test_stats_keeps_its_keys_and_adds_the_counters(worker, rqueue, queued):
+    rq = rqueue(10.0) if queued else None
+    with _Http(worker, rq) as srv:
+        assert srv.call("POST", "/generate", {"num": 1})[0] == 200
+        status, stats = srv.call("GET", "/stats")
+    assert status == 200
+    keys = {"requests", "samples", "last_device_ms", "batch_size", "warmed_scales", "counters"}
+    assert set(stats) == keys | ({"coalesced_batches"} if queued else set())
+    assert stats["requests"] == worker.requests and stats["samples"] == worker.samples
+    counters = stats["counters"]
+    for name in ("serve.worker.passes", "serve.worker.padded_rows", "serve.worker.requests",
+                 "ops.packed_self_attention.launches", "ops.group_norm_bwd.launches"):
+        assert isinstance(counters[name], int), name
 
 
 # -- long form --------------------------------------------------------------------------------
