@@ -1072,6 +1072,109 @@ def gn_dx_half_span(x, dy, mean_c, inv_c, gamma, groups):
     return (inv_c[:, :, None, None] * (dyg - (s1 + xh * s2))).to(x.dtype)
 
 
+# kernel 8 (GroupNorm forward with its SiLU): the decoder's largest site, a
+# level-2 site in NCHW and, as the model holds it after a SpatialTransformer,
+# channels-last: (B, C, H, W, channels-last, SiLU). Limit: within GN_FWD_ULPS
+# of the affine's largest operand (``gn_fwd_ulps``: a bf16 a that rounds the
+# other way, the statistics summed in another order, moves x * a by up to 2
+# ulps of it, off by one, and z's rounding one more) and at least
+# GN_FWD_EQUAL of the elements bit-equal
+GN_FWD_SHAPES = [(128, 192, 128, 128, False, True), (128, 256, 32, 32, False, True),
+                 (128, 256, 32, 32, True, False)]
+GN_FWD_ULPS, GN_FWD_EQUAL = 4, 0.999
+
+
+def gn_fwd_ulps(got, want, x, weight, bias, groups, eps):
+    """|got - want| in ulps, in x's dtype, of the largest of |x * a|,
+    |beta|, |mean * a| and |want| at each element: what a 1-ulp change of a
+    or off moves, however far the affine cancels."""
+    import torch
+
+    from polyffusion_tpu_torch.ops.gn_bwd import gn_affine
+
+    a, off = gn_affine(x, weight, bias, groups, eps)
+    per_channel = torch.maximum(bias.float().abs().expand_as(off), (bias.float() - off).abs())
+    scale = torch.maximum((x.float() * a[:, :, None, None]).abs(),
+                          per_channel[:, :, None, None].expand_as(x))
+    scale = torch.maximum(scale, want.float().abs()).clamp_min(2.0**-100)
+    bits = 7 if x.dtype == torch.bfloat16 else 23
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 1 - bits)
+    return (got.float() - want.float()).abs() / ulp
+
+
+def gn_fwd_without_mean_sq(x, weight, bias, groups, eps):
+    """The plain GroupNorm with E[x^2] for the variance: the planted fault of
+    ``check_gn_fwd``."""
+    import torch
+
+    b, c = x.shape[:2]
+    xg = x.float().reshape(b, groups, -1)
+    mean = xg.mean(-1).repeat_interleave(c // groups, 1)
+    inv = torch.rsqrt((xg * xg).mean(-1) + eps).repeat_interleave(c // groups, 1)
+    a, off = (inv * weight).to(x.dtype), (bias - mean * inv * weight).to(x.dtype)
+    return x * a[:, :, None, None] + off[:, :, None, None]
+
+
+def check_gn_fwd():
+    """GroupNorm forward kernel (kernel 8) against its plain version
+    (``gn_primal``, then ``F.silu``) at GN_FWD_SHAPES, bf16: within
+    GN_FWD_ULPS and GN_FWD_EQUAL bit-equal; planted fault: the variance as
+    E[x^2], the mean's square left out (``gn_fwd_without_mean_sq``), which
+    must fail the limit. Times kernel, plain version and ``F.group_norm`` +
+    ``F.silu`` (the yardstick) in turns, against the bound (x read and y
+    written once at 3.35 TB/s). Returns a row per shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from polyffusion_tpu_torch.ops.gn_bwd import gn_primal
+    from polyffusion_tpu_torch.ops.gn_fwd import gn_fwd_plan, group_norm_silu
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    groups, eps, rows = 32, 1e-5, []
+    for b, c, hh, ww, cl, silu in GN_FWD_SHAPES:
+        x = (torch.randn(b, c, hh, ww, device="cuda", generator=g) * 2 + 0.5).bfloat16()
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        weight = torch.randn(c, device="cuda", generator=g) * 0.5 + 1.0
+        bias = torch.randn(c, device="cuda", generator=g) * 0.1
+        act = F.silu if silu else (lambda t: t)
+        plan = gn_fwd_plan(c, hh, ww, x.dtype, groups, cl)
+        before = group_norm_silu.launches
+        got = group_norm_silu(x, weight, bias, groups, eps, silu)
+        torch.cuda.synchronize()
+        if group_norm_silu.launches != before + 1:
+            raise AssertionError("gn_fwd: one call did not count one launch")
+        want = act(gn_primal(x, weight, bias, groups, eps)[0])
+        fault = act(gn_fwd_without_mean_sq(x, weight, bias, groups, eps))
+        ulps = gn_fwd_ulps(got, want, x, weight, bias, groups, eps).max().item()
+        equal = (got == want).float().mean().item()
+        fault_ulps = gn_fwd_ulps(fault, want, x, weight, bias, groups, eps).max().item()
+        shape = f"B={b} C={c} H={hh} W={ww} bf16{' channels-last' if cl else ''}" + (
+            " +SiLU" if silu else "")
+        if not (ulps <= GN_FWD_ULPS and equal >= GN_FWD_EQUAL and got.stride() == x.stride()):
+            raise AssertionError(f"gn_fwd {shape}: {ulps:.3g} ulps, {equal:.6f} bit-equal")
+        if not fault_ulps > GN_FWD_ULPS:
+            raise AssertionError(f"the limit at gn_fwd {shape} does not catch the variance "
+                                 f"without the mean's square ({fault_ulps:.3g} ulps)")
+        ms = time_in_turns({
+            "kernel": lambda: group_norm_silu(x, weight, bias, groups, eps, silu),
+            "plain": lambda: act(gn_primal(x, weight, bias, groups, eps)[0]),
+            "library": lambda: act(F.group_norm(x, groups, weight.bfloat16(), bias.bfloat16(),
+                                                eps)),
+        })
+        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        log(f"[kernel] gn_fwd {shape} (cluster {plan.cluster}, {plan.smem} B a CTA): "
+            f"{ulps:.3g} ulps (limit {GN_FWD_ULPS}), {100 * equal:.4f} % bit-equal (limit "
+            f"{100 * GN_FWD_EQUAL:.1f}); planted fault (variance without the mean's square) "
+            f"{fault_ulps:.3g} ulps (must exceed {GN_FWD_ULPS})  kernel {ms['kernel']:.4f} ms  plain {ms['plain']:.4f} ms  "
+            f"F.group_norm+silu {ms['library']:.4f} ms  bound {bound:.4f} ms (bytes)")
+        rows.append(dict(shape=shape, cluster=plan.cluster, ulps=ulps, bit_equal=equal,
+                         fault_ulps=fault_ulps, ms=ms["kernel"], plain_ms=ms["plain"],
+                         library_ms=ms["library"], bound_ms=bound, bound_by="bytes"))
+        del x, got, want, fault
+    return rows
+
+
 def build_copy(name: str, text: str):
     """A copy of a ``csrc/`` source, changed, compiled as the package's
     sources are (into the package's build directory) and loaded."""
@@ -5124,6 +5227,7 @@ def main() -> int:
     host_rows = host_launch_costs()
     hm_rows = check_head_major_attention()
     gn_rows = check_gn_bwd()
+    check_gn_fwd()
     epi_rows = check_repaint_epilogue()
     floor_ms = launch_floor()
     gnc_rows = check_gn_conv(quantized=False)

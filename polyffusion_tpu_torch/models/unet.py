@@ -59,6 +59,7 @@ from ..ops.fused_gn_conv import (
     gn_silu_conv3x3_q,
 )
 from ..ops.gn_bwd import gn_affine, group_norm_affine
+from ..ops.gn_fwd import group_norm_silu, kernel_takes
 from ..ops.quant import int8_concat_conv, int8_conv, quantize_weight
 from ..ops.s2d import (
     fold_channel_vec,
@@ -93,7 +94,9 @@ class GroupNorm32(nn.Module):
     fp32, so it would round differently in bf16). Its backward is the GroupNorm
     backward kernel on a CUDA tensor (``ops/gn_bwd.py``). ``groups``: 32, the
     reference's normalization(32), unless a model asks for another count (the
-    plain DDPM UNet's final norm has 8)."""
+    plain DDPM UNet's final norm has 8). Outside autograd on a CUDA tensor
+    that kernel 8 takes (``ops/gn_fwd.py:kernel_takes``: the samplers), the
+    forward is one launch of it, with the same roundings."""
 
     def __init__(self, channels: int, eps: float = 1e-5, groups: int = 32):
         super().__init__()
@@ -105,7 +108,19 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if kernel_takes(x, self.groups):
+            return group_norm_silu(x, self.weight, self.bias, self.groups, self.eps)
         return group_norm_affine(x, self.weight, self.bias, self.groups, self.eps)
+
+
+def norm_silu(layers: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """``layers[1](layers[0](x))``, a GroupNorm32 and its SiLU, as one launch
+    of kernel 8 where ``kernel_takes`` x; the norm's subclasses (the folded
+    and the tensor-parallel ones) keep their own forward."""
+    norm = layers[0]
+    if type(norm) is GroupNorm32 and kernel_takes(x, norm.groups):
+        return group_norm_silu(x, norm.weight, norm.bias, norm.groups, norm.eps, silu=True)
+    return layers[1](norm(x))
 
 
 class FoldedGroupNorm32(GroupNorm32):
@@ -234,9 +249,9 @@ class ResBlock(nn.Module):
         if self.gn_conv in ("unfused", "s2d"):
             if skip is not None:
                 x = torch.cat([x, skip], dim=1)
-            h = self.in_layers(x)
+            h = self.in_layers[2](norm_silu(self.in_layers, x))
             h = h + self.emb_layers(t_emb).to(h.dtype)[:, :, None, None]
-            return self.skip_connection(x) + self.out_layers(h)
+            return self.skip_connection(x) + self.out_layers[3](norm_silu(self.out_layers, h))
         if self.gn_conv == "int8_xla":
             return self._forward_int8_xla(x, t_emb, skip)
         # the kernels take contiguous NCHW (a SpatialTransformer's output is not)
@@ -292,7 +307,7 @@ class ResBlock(nn.Module):
         added in the activation dtype, then the bias)."""
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
-        y = self.in_layers[1](self.in_layers[0](x))
+        y = norm_silu(self.in_layers, x)
         parts = self._int8_parts(0)
         if len(parts) == 1:
             h = int8_conv(y, *parts[0], self.in_layers[2].bias)
@@ -300,7 +315,7 @@ class ResBlock(nn.Module):
             c1 = x.shape[1] - self.skip_channels
             h = int8_concat_conv(y[:, :c1], y[:, c1:], parts, self.in_layers[2].bias)
         h = h + self.emb_layers(t_emb).to(h.dtype)[:, :, None, None]
-        y = self.out_layers[1](self.out_layers[0](h))
+        y = norm_silu(self.out_layers, h)
         return self.skip_connection(x) + int8_conv(y, *self._int8_parts(1)[0],
                                                    self.out_layers[3].bias)
 
@@ -595,7 +610,7 @@ class UNetModel(nn.Module):
         h = self.middle_block(h, t_emb, cond)
         for block in self.output_blocks:
             h = block(h, t_emb, cond, skip=skips.pop())
-        h = self.out(h)
+        h = self.out[2](norm_silu(self.out, h))
         return (from_s2d(h) if self.s2d else h).float()
 
     def prepare_gn_conv(self) -> None:

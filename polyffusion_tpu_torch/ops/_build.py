@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = ("packed_attention", "packed_attention_bwd", "gn_bwd", "repaint_epilogue",
-           "gn_silu_conv")
+           "gn_silu_conv", "gn_fwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

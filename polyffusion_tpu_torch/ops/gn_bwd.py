@@ -125,11 +125,12 @@ def gn_bwd_reference(
     return dx.to(x.dtype), dgamma, dbeta
 
 
-class GnBwdPlan(NamedTuple):
-    """How the kernel splits one (item, group) span of x and dy: over
-    ``cluster`` CTAs of ``share`` elements each (the last may hold fewer), each
-    share copied in chunks of ``chunk`` elements; ``smem`` bytes of shared
-    memory a CTA (x's and dy's shares, each rounded up to 128 bytes)."""
+class ClusterPlan(NamedTuple):
+    """How a kernel splits one span (kernel 6: an (item, group) of x and
+    dy; kernel 8, ``ops/gn_fwd.py``: one of x) over ``cluster`` CTAs of
+    ``share`` elements each (the last may hold fewer), each share copied in
+    chunks of ``chunk`` elements; ``smem`` bytes of shared memory a CTA (each
+    tensor's share rounded up to 128 bytes)."""
 
     cluster: int
     share: int
@@ -141,33 +142,36 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def split_plan(span: int, itemsize: int, k: int) -> GnBwdPlan:
-    """A span of ``span`` elements over ``k`` CTAs: shares of a multiple of 8
-    elements (16-byte aligned in either dtype), chunks of ``CHUNK_BYTES``."""
-    share = _round_up(-(-span // k), 8)
-    return GnBwdPlan(k, share, min(share, CHUNK_BYTES // itemsize),
-                     2 * _round_up(share * itemsize, 128))
+def split_plan(span: int, itemsize: int, k: int, tensors: int = 2, unit: int = 8) -> ClusterPlan:
+    """A span of ``span`` elements of each of ``tensors`` tensors over ``k``
+    CTAs: shares of a multiple of ``unit`` elements (8: 16-byte aligned in
+    either dtype), chunks of ``CHUNK_BYTES``."""
+    share = _round_up(-(-span // k), unit)
+    return ClusterPlan(k, share, min(share, CHUNK_BYTES // itemsize),
+                       tensors * _round_up(share * itemsize, 128))
 
 
-@functools.lru_cache(maxsize=None)
-def gn_bwd_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype, groups: int) -> GnBwdPlan:
-    """The cluster size and split of the span of cg * H * W elements that one
-    (item, group) of x and dy is: the smallest of ``CLUSTER_SIZES`` whose
-    share fits ``SMEM_BUDGET`` bytes of shared memory a CTA; where none does,
-    the largest cluster, if its share fits ``SMEM_LIMIT``. Raises
-    ``ValueError`` where it does not."""
-    itemsize = dtype.itemsize
-    span = c // groups * h * w
-    plans = [split_plan(span, itemsize, k) for k in CLUSTER_SIZES]
+def cluster_plan(span: int, itemsize: int, tensors: int = 2, unit: int = 8) -> ClusterPlan:
+    """The smallest of ``CLUSTER_SIZES`` whose share fits ``SMEM_BUDGET``
+    bytes of shared memory a CTA; where none does, the largest cluster, if
+    its share fits ``SMEM_LIMIT``. Raises ``ValueError`` where it does not."""
+    plans = [split_plan(span, itemsize, k, tensors, unit) for k in CLUSTER_SIZES]
     for plan in plans:
         if plan.smem <= SMEM_BUDGET:
             return plan
     if plans[-1].smem <= SMEM_LIMIT:
         return plans[-1]
     raise ValueError(
-        f"a GroupNorm span of {c // groups} channels x {h * w} positions ({2 * span * itemsize} "
-        f"bytes of x and dy) does not fit {CLUSTER_SIZES[-1]} CTAs of {SMEM_LIMIT} bytes of "
-        f"shared memory: the kernel takes at most {CLUSTER_SIZES[-1] * SMEM_LIMIT} bytes")
+        f"a GroupNorm span of {tensors} x {span * itemsize} bytes does not fit "
+        f"{CLUSTER_SIZES[-1]} CTAs of {SMEM_LIMIT} bytes of shared memory: the kernel takes at "
+        f"most {CLUSTER_SIZES[-1] * SMEM_LIMIT} bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def gn_bwd_plan(b: int, c: int, h: int, w: int, dtype: torch.dtype, groups: int) -> ClusterPlan:
+    """``cluster_plan`` of the span of cg * H * W elements that one (item,
+    group) of x and dy is."""
+    return cluster_plan(c // groups * h * w, dtype.itemsize)
 
 
 def _check(x, dy, mean_c, inv_c, gamma, groups: int, param_dtype) -> None:

@@ -293,7 +293,7 @@ def split_rows(cs, old):
         tickets = mod._tickets(x.device, 32)
         whole = _round8(span)
         forms = {name: (libs[name], plan) for name in ("full", *ABLATIONS, *VARIANTS)}
-        forms["two_pass_global"] = (libs["two_pass_global"], mod.GnBwdPlan(1, whole, whole, 0))
+        forms["two_pass_global"] = (libs["two_pass_global"], mod.ClusterPlan(1, whole, whole, 0))
         for budget in SPLIT_BUDGETS:
             p = plan_at(span, torch.bfloat16, budget)
             forms[f"full_budget_{budget // 1024}k"] = (libs["full"], p)

@@ -36,11 +36,13 @@ from polyffusion_tpu_torch.ops.fused_gn_conv import (
     quantize_conv_kernel,
 )
 from polyffusion_tpu_torch.ops.gn_bwd import (
+    gn_affine,
     gn_bwd_plan,
     gn_bwd_reference,
     gn_primal,
     group_norm_bwd,
 )
+from polyffusion_tpu_torch.ops.gn_fwd import gn_fwd_plan, group_norm_silu
 from polyffusion_tpu_torch.ops.repaint_epilogue import (
     fused_repaint_epilogue,
     repaint_epilogue_reference,
@@ -789,3 +791,179 @@ def test_cuda_distill_loss_and_gradients_match_the_cpu(mode, kind):
     for k, w in want_g.items():
         assert (got_g[k] - w).norm() <= 1e-4 * w.norm() + 1e-9, k
     assert min(launches["cuda"]) > 0 and launches["cpu"] == [0, 0, 0], launches
+
+
+# Kernel 8 (ops/gn_fwd.py). The sdf_chd8bar UNet's GroupNorm sites at batch 2:
+# (C, H, W, channels-last); the layout is the one the site has in the model
+# (the convolutions after a SpatialTransformer leave channels-last)
+GN_FWD_SITES = [
+    (64, 128, 128, False), (64, 64, 64, False), (128, 64, 64, False), (128, 32, 32, False),
+    (256, 32, 32, False), (384, 32, 32, False), (384, 64, 64, False), (256, 64, 64, False),
+    (192, 64, 64, False), (192, 128, 128, False), (128, 128, 128, False),
+    (256, 32, 32, True), (256, 16, 16, True), (512, 16, 16, True), (512, 32, 32, True),
+]
+# the plain DDPM and autoencoder families' shapes: (B, C, H, W, groups)
+GN_FWD_FAMILY = [(2, 64, 128, 128, 8), (2, 2048, 16, 16, 32), (2, 1280, 16, 16, 32),
+                 (2, 128, 128, 128, 32)]
+MANTISSA_BITS = {torch.bfloat16: 7, torch.float32: 23}
+# kernel 8 against its plain version, in ulps of the affine's largest operand
+# (``_ulps``). bf16: a that rounds the other way (the statistics summed in
+# another order) moves x * a by up to 2 ulps of it, off by one, and z's
+# rounding one more (the card read at most 3, chip_smoke.py's shapes).
+# fp32: the order moves a and off by a few fp32 ulps, each up to 2 of x * a
+# (the card read at most 7, batch 2)
+GN_FWD_ULPS = {torch.bfloat16: 4, torch.float32: 16}
+
+
+def _gn_fwd_inputs(g, b, c, h, w, dtype, channels_last, exact):
+    """x, weight, bias. ``exact``: x in eighths of at most 1.5, whose sums
+    and sums of squares fp32 holds exactly in any order, so the kernel's and
+    the plain version's statistics are the same bits."""
+    if exact:
+        x = torch.randint(-8, 13, (b, c, h, w), device="cuda", generator=g).float() / 8
+    else:
+        x = torch.randn(b, c, h, w, device="cuda", generator=g) * 2 + 0.5
+    x = x.to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    weight = torch.randn(c, device="cuda", generator=g) * 0.5 + 1.0
+    bias = torch.randn(c, device="cuda", generator=g) * 0.1
+    return x, weight, bias
+
+
+def _gn_fwd_plain(x, weight, bias, groups, eps, silu):
+    y = gn_primal(x, weight, bias, groups, eps)[0]
+    return torch.nn.functional.silu(y) if silu else y
+
+
+def _ulps(got, want, x, weight, bias, groups, eps):
+    """|got - want| in units of the last place, in x's dtype, of the largest
+    operand of the affine at each element (|x * a|, |beta|, |mean * a|,
+    |want|): the statistics summed in another order move a and off by an
+    ulp or so of those, however far x * a + off, or beta - mean * a,
+    cancels."""
+    a, off = gn_affine(x, weight, bias, groups, eps)
+    per_channel = torch.maximum(bias.float().abs().expand_as(off), (bias.float() - off).abs())
+    scale = torch.maximum((x.float() * a[:, :, None, None]).abs(),
+                          per_channel[:, :, None, None].expand_as(x))
+    scale = torch.maximum(scale, want.float().abs()).clamp_min(2.0**-100)
+    ulp = torch.ldexp(torch.ones_like(scale),
+                      torch.frexp(scale).exponent - 1 - MANTISSA_BITS[x.dtype])
+    return ((got.float() - want.float()).abs() / ulp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [False, True], ids=["", "silu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("site", GN_FWD_SITES, ids=lambda s: "x".join(map(str, s[:3]))
+                         + ("-cl" if s[3] else ""))
+def test_cuda_gn_fwd_matches_plain(site, dtype, silu):
+    """Kernel 8 against its plain version at the sdf_chd8bar sites. With
+    exact statistics (x in eighths) every element is bit-equal. On Gaussian
+    x, whose fp32 sums the two take in other orders, within ``GN_FWD_ULPS``
+    (``_ulps``), and in bf16 at least 99.9 % bit-equal. A shape the plan
+    refuses (fp32 (512, 32, 32) channels-last: 2 MB an item) raises."""
+    c, h, w, cl = site
+    g = _card()
+    eps = 1e-6 if (c, h, w, cl) == (256, 32, 32, False) else 1e-5
+    try:
+        gn_fwd_plan(c, h, w, dtype, 32, cl)
+    except ValueError:
+        x, weight, bias = _gn_fwd_inputs(g, 2, c, h, w, dtype, cl, True)
+        with pytest.raises(ValueError, match="does not fit"):
+            group_norm_silu(x, weight, bias, 32, eps, silu)
+        return
+    for exact in (True, False):
+        x, weight, bias = _gn_fwd_inputs(g, 2, c, h, w, dtype, cl, exact)
+        before = (group_norm_silu.launches, group_norm_silu.silu_launches)
+        got = group_norm_silu(x, weight, bias, 32, eps, silu)
+        torch.cuda.synchronize()
+        assert (group_norm_silu.launches, group_norm_silu.silu_launches) == (
+            before[0] + 1, before[1] + int(silu))
+        want = _gn_fwd_plain(x, weight, bias, 32, eps, silu)
+        assert got.dtype == dtype and got.stride() == x.stride()
+        if exact:
+            assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+            continue
+        ulps = _ulps(got, want, x, weight, bias, 32, eps).max().item()
+        equal = (got == want).float().mean().item()
+        assert ulps <= GN_FWD_ULPS[dtype], (ulps, equal)
+        assert dtype == torch.float32 or equal >= 0.999, (ulps, equal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [False, True], ids=["", "silu"])
+@pytest.mark.parametrize("b,c,h,w,groups", GN_FWD_FAMILY)
+def test_cuda_gn_fwd_family_shapes_match_plain(b, c, h, w, groups, silu):
+    """Kernel 8 at the DDPM and autoencoder shapes, fp32: 8 groups, and 64
+    channels a group; exact statistics bit-equal, Gaussian x within
+    ``GN_FWD_ULPS``."""
+    g = _card()
+    for exact in (True, False):
+        x, weight, bias = _gn_fwd_inputs(g, b, c, h, w, torch.float32, False, exact)
+        got = group_norm_silu(x, weight, bias, groups, 1e-5, silu)
+        want = _gn_fwd_plain(x, weight, bias, groups, 1e-5, silu)
+        if exact:
+            assert torch.equal(got, want)
+        else:
+            ulps = _ulps(got, want, x, weight, bias, groups, 1e-5).max().item()
+            assert ulps <= GN_FWD_ULPS[torch.float32], ulps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cl", [False, True], ids=["nchw", "cl"])
+def test_cuda_gn_fwd_is_deterministic(cl):
+    """The statistics are added in a fixed order, across the cluster too:
+    two launches give the same bits."""
+    g = _card()
+    x, weight, bias = _gn_fwd_inputs(g, 16, 512 if cl else 192, 32 if cl else 128,
+                                     32 if cl else 128, torch.bfloat16, cl, False)
+    assert gn_fwd_plan(*x.shape[1:], torch.bfloat16, 32, cl).cluster == (8 if cl else 4)
+    a = group_norm_silu(x, weight, bias, 32, 1e-5, True)
+    b = group_norm_silu(x, weight, bias, 32, 1e-5, True)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_fwd_refuses_strided_and_oversized_inputs():
+    """On the card the wrapper raises on a layout the kernel does not take,
+    and on a span no cluster holds; it launches nothing and falls back to
+    nothing."""
+    _card()
+    weight, bias = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    strided = torch.zeros(2, 64, 16, 32, device="cuda")[..., ::2]
+    big = torch.zeros(1, 64, 128, 128, device="cuda")  # one group of 4 MB
+    before = group_norm_silu.launches
+    with pytest.raises(ValueError, match="channels-last"):
+        group_norm_silu(strided, weight, bias, 32, 1e-5)
+    with pytest.raises(ValueError, match="does not fit"):
+        group_norm_silu(big, weight, bias, 1, 1e-5)
+    assert group_norm_silu.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_unet_sampling_eval_runs_kernel_8_at_every_norm():
+    """The sdf_chd8bar UNet in its sampling precision on the card: under
+    ``inference_mode`` 56 launches an evaluation, 45 with the SiLU, and the
+    output close to the autograd forward's (the statistics summed in
+    another order); under autograd none."""
+    from polyffusion_tpu_torch.models.unet import UNetModel
+    from polyffusion_tpu_torch.utils.precision import cast_sampling_params
+
+    g = _card()
+    tm = cast_sampling_params(UNetModel(channels=64, attention_levels=(2, 3),
+                                        channel_multipliers=(1, 2, 4, 4), n_heads=4,
+                                        d_cond=512).cuda().eval())
+    args = (torch.randn(2, 2, 128, 128, device="cuda", generator=g),
+            torch.tensor([3, 977], device="cuda"),
+            torch.randn(2, 1, 512, device="cuda", generator=g).bfloat16())
+    before = (group_norm_silu.launches, group_norm_silu.silu_launches)
+    with torch.inference_mode():
+        fast = tm(*args)
+    torch.cuda.synchronize()
+    assert (group_norm_silu.launches - before[0], group_norm_silu.silu_launches - before[1]) == (
+        56, 45)
+    slow = tm(*args)
+    assert group_norm_silu.launches - before[0] == 56
+    rel = (fast - slow.detach()).norm() / slow.detach().norm()
+    assert rel < 2e-2, rel
