@@ -37,7 +37,11 @@ def make_eps_fn(apply_fn: EpsFn, uncond_scale: float = 1.0,
     v-adapter does not), the double batch is forked inside the net instead:
     ``x``, ``t`` and ``cond_concat`` at batch B, the condition at 2B, and the
     net duplicates its activations before its first cross-attention (the
-    UNet's ``cfg_fork``). The same function up to float reassociation."""
+    UNet's ``cfg_fork``). The same function up to float reassociation.
+
+    A condition may be a tuple of tensors (SDXL's (context, y):
+    ``tasks/sdxl.py``), as may ``uncond_cond``; the double batch stacks each
+    part."""
     fork = cfg_fork and getattr(apply_fn, "supports_cfg_fork", False)
 
     def run(x, t, cond, cond_concat):
@@ -52,7 +56,8 @@ def make_eps_fn(apply_fn: EpsFn, uncond_scale: float = 1.0,
             return run(x, t, cond, cond_concat)
         if uncond_scale == 0.0:
             return run(x, t, uncond_cond, cond_concat)
-        c_in = torch.cat([uncond_cond, cond])
+        c_in = (tuple(torch.cat(parts) for parts in zip(uncond_cond, cond))
+                if isinstance(cond, tuple) else torch.cat([uncond_cond, cond]))
         if fork:
             if cond_concat is not None:
                 x = torch.cat([x, cond_concat.to(x.dtype)], dim=1)

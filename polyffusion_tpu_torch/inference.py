@@ -12,7 +12,10 @@ package's layouts and argument order: conditions (B, N, d_cond) (N = 1, or the
 128 prmat rows of ``sdf_txtvnl``), images (B, 2, H, W) in and out, optional
 starting ``noise`` NHWC (B, H, W, C); with ``autoreg`` and a pieces axis,
 conditions (P, B, N, d_cond) and output (P, 2B, C, H/2, W). The CFG
-unconditional condition is -1s of the condition's own shape. A
+unconditional condition is the task's ``uncond_condition``: -1s of the
+condition's own shape for an sdf task; for SDXL (``tasks/sdxl.py``), whose
+condition is the pair (context, y) and whose images are latents, zeros of
+the text parts. A
 ``concat_blurry`` task (``sdf_concat``) also sees the blurry image of each
 request's original roll; a distilled student's run directory
 (``polyffusion_tpu_torch.distill``) is sampled on its own tau grid. A MIDI file
@@ -333,7 +336,9 @@ class InferenceSession:
         mask: Optional[np.ndarray] = None,
         noise=None,
     ) -> np.ndarray:
-        """Generate (or, with ``orig`` and ``mask``, inpaint) (B, 2, H, W) images.
+        """Generate (or, with ``orig`` and ``mask``, inpaint) (B, C, H, W) images.
+        ``cond``: (B, N, d_cond), or a tuple of parts with B rows each (the
+        task's own form: SDXL's (context, y)).
 
         Starts from q_sample(orig, t_idx) and paints with ``mask`` (all zero
         for plain generation); the starting ``noise`` (NHWC, drawn from the
@@ -365,11 +370,12 @@ class InferenceSession:
                 )
                 return out[0]
 
-            cond = self._tensor(cond)
-            b = cond.shape[0]
+            cond = (tuple(self._tensor(part) for part in cond) if isinstance(cond, tuple)
+                    else self._tensor(cond))
+            b = (cond[0] if isinstance(cond, tuple) else cond).shape[0]
             self._check_batch(b)
             h, w, c = self.cfg.img_h, self.cfg.img_w, self.cfg.out_channels
-            uncond_cond = -torch.ones_like(cond)
+            uncond_cond = self.task.uncond_condition(cond)
             if orig is None or mask is None:
                 orig = np.zeros((b, c, h, w), np.float32)
                 mask = np.zeros_like(orig)

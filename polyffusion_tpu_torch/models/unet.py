@@ -45,7 +45,7 @@ float reassociation, with the condition-free prefix computed once.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -386,22 +386,26 @@ class CrossAttention(nn.Module):
 
 
 class GeGLU(nn.Module):
-    def __init__(self, d_in: int, d_out: int):
+    """``gelu``: the GELU's ``approximate`` form, "tanh" (flax's) or "none"
+    (the exact one)."""
+
+    def __init__(self, d_in: int, d_out: int, gelu: str = "tanh"):
         super().__init__()
         self.proj = nn.Linear(d_in, d_out * 2)
+        self.gelu = gelu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         val, gate = self.proj(x).chunk(2, dim=-1)
-        return val * F.gelu(gate, approximate="tanh")
+        return val * F.gelu(gate, approximate=self.gelu)
 
 
 class FeedForward(nn.Module):
     """GeGLU feed-forward, 4x wide; index 1 stands where the reference keeps its Dropout."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, gelu: str = "tanh"):
         super().__init__()
         self.net = nn.Sequential(
-            GeGLU(d_model, d_model * 4), nn.Identity(), nn.Linear(d_model * 4, d_model)
+            GeGLU(d_model, d_model * 4, gelu), nn.Identity(), nn.Linear(d_model * 4, d_model)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -410,16 +414,18 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """pre-LN self-attention -> cross-attention -> GeGLU FF. The LayerNorms run
-    in fp32 with flax's default epsilon 1e-6."""
+    in fp32, by default with flax's epsilon 1e-6 and the GeGLU with the tanh
+    GELU (``ln_eps``, ``gelu``: a published model's own)."""
 
-    def __init__(self, d_model: int, n_heads: int, d_head: int, d_cond: int):
+    def __init__(self, d_model: int, n_heads: int, d_head: int, d_cond: int,
+                 ln_eps: float = 1e-6, gelu: str = "tanh"):
         super().__init__()
         self.attn1 = CrossAttention(d_model, d_model, n_heads, d_head)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
+        self.norm1 = nn.LayerNorm(d_model, eps=ln_eps)
         self.attn2 = CrossAttention(d_model, d_cond, n_heads, d_head)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
-        self.ff = FeedForward(d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-6)
+        self.norm2 = nn.LayerNorm(d_model, eps=ln_eps)
+        self.ff = FeedForward(d_model, gelu)
+        self.norm3 = nn.LayerNorm(d_model, eps=ln_eps)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         x = self.attn1(self.norm1(x.float()).to(x.dtype)) + x
@@ -428,25 +434,41 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GN -> 1x1 conv -> flatten HW -> transformer blocks -> 1x1 conv, + residual."""
+    """GN -> 1x1 conv -> flatten HW -> transformer blocks -> 1x1 conv, + residual.
+    ``linear`` (SDXL's ``use_linear_in_transformer``): proj_in and proj_out
+    are Linear layers on the (B, HW, C) tokens, and the sum with the input
+    keeps the input's NCHW layout."""
 
-    def __init__(self, channels: int, n_heads: int, n_layers: int, d_cond: int):
+    def __init__(self, channels: int, n_heads: int, n_layers: int, d_cond: int,
+                 linear: bool = False, ln_eps: float = 1e-6, gelu: str = "tanh"):
         super().__init__()
+        self.linear = linear
+
+        def proj():
+            return nn.Linear(channels, channels) if linear else nn.Conv2d(channels, channels, 1)
+
         self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(channels, n_heads, channels // n_heads, d_cond)
+            BasicTransformerBlock(channels, n_heads, channels // n_heads, d_cond, ln_eps, gelu)
             for _ in range(n_layers)
         )
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+        self.proj_out = proj()
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         x_in = x
-        x = self.proj_in(self.norm(x))
-        x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        if self.linear:
+            x = self.proj_in(self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            x = self.proj_in(self.norm(x))
+            x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
             x = block(x, cond)
+        if self.linear:
+            # x_in first: the sum takes its NCHW layout, which the next
+            # GroupNorm's kernel reads whole
+            return x_in + self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2)
         x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(x) + x_in
 
@@ -500,11 +522,23 @@ class TimestepEmbedSequential(nn.Sequential):
 
 class UNetModel(nn.Module):
     """The epsilon-prediction UNet: ``x`` (B, in_channels, H, W), ``time_steps``
-    (B,), ``cond`` (B, n_cond, d_cond) -> (B, out_channels, H, W) in fp32.
+    (B,), ``cond`` (B, n_cond, d_cond) and, where ``adm_in_channels`` is set,
+    ``y`` (B, adm_in_channels) -> (B, out_channels, H, W) in fp32.
     ``gn_conv``: "unfused", "fused", "int8", "int8_xla" or "s2d" (see the
     module's docstring). "s2d" is refused where level 0 attends (JAX's
     ``POLYFF_S2D`` gate falls back to the plain route there) and, in the
-    forward, for a width the folds do not divide."""
+    forward, for a width the folds do not divide.
+
+    The keys after ``gn_conv`` describe SDXL's UNet (sgm's ``UNetModel``);
+    their defaults keep the Polyffusion UNet as it is. ``tf_layers``: the
+    transformer depth of every attending level, or one depth a level, 0
+    exactly at the levels ``attention_levels`` leaves out; the middle block
+    takes the last level's depth. ``d_head``: heads of this width (a level's
+    heads are its channels over it) in place of ``n_heads`` heads.
+    ``linear_proj``: Linear proj_in and proj_out (``SpatialTransformer``).
+    ``adm_in_channels``: a ``label_emb`` MLP (Linear, SiLU, Linear) on ``y``
+    added to the time embedding. ``ln_eps``, ``gelu``: the transformer
+    blocks' LayerNorm epsilon and GELU form."""
 
     def __init__(
         self,
@@ -515,9 +549,14 @@ class UNetModel(nn.Module):
         attention_levels: Sequence[int] = (2, 3),
         channel_multipliers: Sequence[int] = (1, 2, 4, 4),
         n_heads: int = 4,
-        tf_layers: int = 1,
+        tf_layers: Union[int, Sequence[int]] = 1,
         d_cond: int = 512,
         gn_conv: str = "unfused",
+        d_head: Optional[int] = None,
+        linear_proj: bool = False,
+        adm_in_channels: int = 0,
+        ln_eps: float = 1e-6,
+        gelu: str = "tanh",
     ):
         super().__init__()
         if gn_conv == "s2d" and 0 in attention_levels:
@@ -532,9 +571,22 @@ class UNetModel(nn.Module):
         self.time_embed = nn.Sequential(
             nn.Linear(channels, d_time_emb), nn.SiLU(), nn.Linear(d_time_emb, d_time_emb)
         )
+        self.label_emb = None
+        if adm_in_channels:
+            self.label_emb = nn.Sequential(nn.Sequential(
+                nn.Linear(adm_in_channels, d_time_emb), nn.SiLU(),
+                nn.Linear(d_time_emb, d_time_emb)))
+        depths = [tf_layers] * levels if isinstance(tf_layers, int) else list(tf_layers)
+        if not isinstance(tf_layers, int) and (
+                len(depths) != levels
+                or sorted(attention_levels) != [i for i, d in enumerate(depths) if d]):
+            raise ValueError(f"tf_layers {depths} must give each of the {levels} levels a "
+                             f"depth, 0 exactly where attention_levels "
+                             f"{list(attention_levels)} leaves a level out")
 
-        def transformer(ch):
-            return SpatialTransformer(ch, n_heads, tf_layers, d_cond)
+        def transformer(ch, depth):
+            heads = ch // d_head if d_head else n_heads
+            return SpatialTransformer(ch, heads, depth, d_cond, linear_proj, ln_eps, gelu)
 
         s2d = self.s2d
         entry = S2dEntryConv(in_channels, channels) if s2d else _conv3x3(in_channels, channels)
@@ -548,7 +600,7 @@ class UNetModel(nn.Module):
                                    folded=s2d and i == 0)]
                 ch = channels_list[i]
                 if i in attention_levels:
-                    layers.append(transformer(ch))
+                    layers.append(transformer(ch, depths[i]))
                 self.input_blocks.append(TimestepEmbedSequential(*layers))
                 skip_channels.append(ch)
             if i != levels - 1:
@@ -557,7 +609,7 @@ class UNetModel(nn.Module):
                 skip_channels.append(ch)
 
         self.middle_block = TimestepEmbedSequential(
-            ResBlock(ch, d_time_emb, gn_conv=gn_conv), transformer(ch),
+            ResBlock(ch, d_time_emb, gn_conv=gn_conv), transformer(ch, depths[-1]),
             ResBlock(ch, d_time_emb, gn_conv=gn_conv)
         )
 
@@ -569,7 +621,7 @@ class UNetModel(nn.Module):
                                    folded=s2d and i == 0)]
                 ch = channels_list[i]
                 if i in attention_levels:
-                    layers.append(transformer(ch))
+                    layers.append(transformer(ch, depths[i]))
                 if i != 0 and j == n_res_blocks:
                     layers.append(UpSample(ch, fold_output=s2d and i == 1))
                 self.output_blocks.append(TimestepEmbedSequential(*layers))
@@ -579,18 +631,26 @@ class UNetModel(nn.Module):
             S2dConv(ch, out_channels, 3) if s2d else _conv3x3(ch, out_channels))
 
     def forward(self, x: torch.Tensor, time_steps: torch.Tensor, cond: torch.Tensor,
-                cfg_fork: bool = False) -> torch.Tensor:
+                cfg_fork: bool = False, y: Optional[torch.Tensor] = None) -> torch.Tensor:
         """With ``cfg_fork``, ``x`` and ``time_steps`` have batch B and ``cond``
         2B (``[uncond | cond]``): ``h``, the time embedding and every stored
         skip are tiled once, just before the input half's first
         SpatialTransformer, or before the middle block where no input level
-        attends; the output has batch 2B."""
+        attends; the output has batch 2B. ``y``: the vector condition of a
+        UNet with a ``label_emb`` (which does not fork)."""
         if self.s2d and x.shape[-1] % self.width_multiple:
             raise ValueError(f"gn_conv='s2d' needs a width divisible by {self.width_multiple} "
                              f"(the folds halve it at level 0 and at the upsample into it), "
                              f"got {x.shape[-1]}")
+        if (self.label_emb is None) != (y is None):
+            raise ValueError("y is the vector condition of a UNet with a label_emb, and only "
+                             "of one")
+        if cfg_fork and y is not None:
+            raise ValueError("cfg_fork forks the time embedding, which y's label_emb is part of")
         dtype = self.out[2].weight.dtype
         t_emb = self.time_embed(timestep_embedding(time_steps, self.channels).to(dtype))
+        if y is not None:
+            t_emb = t_emb + self.label_emb(y.to(dtype))
         h = x.to(dtype)
         skips = []
         forked = not cfg_fork

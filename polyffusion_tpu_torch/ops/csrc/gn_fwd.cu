@@ -49,7 +49,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxChannels = 64;  // channels per group in NCHW (the wrapper checks)
+constexpr int kMaxChannels = 128;  // channels per group in NCHW (the wrapper checks)
 constexpr int kMaxGroups = 64;    // groups in NHWC, where a CTA sees every group
 constexpr int kMaxChunks = 16;    // bulk-copy chunks per CTA (one mbarrier each)
 constexpr int kMaxCluster = 8;

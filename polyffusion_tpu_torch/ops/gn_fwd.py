@@ -11,13 +11,17 @@ fused this work into its neighbours.
 
 x is NCHW, contiguous or channels-last (``torch.channels_last``): the
 convolutions after a SpatialTransformer leave the latter, and y keeps x's
-layout.
+layout. A channels-last x whose item no cluster holds (fp32 (512, 32, 32):
+2 MB), or whose groups the channels-last kernel does not take, runs the NCHW
+kernel on a contiguous copy, and y is copied back to channels-last.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -25,7 +29,7 @@ from .. import tracing
 from .gn_bwd import ClusterPlan, cluster_plan, gn_primal
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHANNELS_PER_GROUP = 64  # NCHW: the kernel's table of a and off
+MAX_CHANNELS_PER_GROUP = 128  # NCHW: the kernel's table of a and off
 MAX_GROUPS = 64  # channels-last: a CTA holds every group of its positions
 THREADS = 256  # channels-last: a thread per 16-byte channel vector of a position
 # where ``kernel_takes`` sends a model's GroupNorm to ``group_norm_silu`` (the
@@ -72,11 +76,23 @@ def _layout(x: torch.Tensor) -> bool:
     raise ValueError(f"x must be contiguous NCHW or channels-last, got strides {x.stride()}")
 
 
-def _check(x, weight, bias, groups: int) -> ClusterPlan:
+def _plan(x: torch.Tensor, groups: int) -> Tuple[ClusterPlan, bool]:
+    """The plan of x's spans, and whether the kernel reads x channels-last
+    (False for a channels-last x that runs as an NCHW copy)."""
+    c, h, w = x.shape[1:]
+    if _layout(x):
+        try:
+            return gn_fwd_plan(c, h, w, x.dtype, groups, True), True
+        except ValueError:
+            pass
+    return gn_fwd_plan(c, h, w, x.dtype, groups, False), False
+
+
+def _check(x, weight, bias, groups: int) -> Tuple[ClusterPlan, bool]:
     if x.dim() != 4:
         raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
-    b, c, h, w = x.shape
-    plan = gn_fwd_plan(c, h, w, x.dtype, groups, _layout(x))
+    c = x.shape[1]
+    plan = _plan(x, groups)
     for name, v in (("weight", weight), ("bias", bias)):
         if v.shape != (c,) or v.dtype not in _DTYPE_CODES or not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 or bfloat16 of shape {(c,)}, "
@@ -94,14 +110,23 @@ def _check(x, weight, bias, groups: int) -> ClusterPlan:
 
 def kernel_takes(x: torch.Tensor, groups: int) -> bool:
     """Whether a model's GroupNorm runs kernel 8 on ``x``: a CUDA tensor
-    outside autograd (``torch.no_grad`` or ``inference_mode``: the samplers)
-    whose dtype, shape and layout the plan holds."""
-    if (x.device.type not in KERNEL_DEVICES or torch.is_grad_enabled() or x.dim() != 4
-            or x.numel() == 0 or x.data_ptr() % 16):
+    outside autograd (``torch.no_grad`` or ``inference_mode``: the samplers).
+    A CUDA tensor there whose dtype, shape, layout or alignment the plan
+    does not hold raises ``ValueError``: the card runs no plain GroupNorm
+    in a sampler. (A CPU tensor, where the tests widen ``KERNEL_DEVICES``,
+    keeps the plain code instead.)"""
+    if x.device.type not in KERNEL_DEVICES or torch.is_grad_enabled() or x.numel() == 0:
         return False
     try:
-        gn_fwd_plan(*x.shape[1:], x.dtype, groups, _layout(x))
-    except ValueError:
+        if x.dim() != 4:
+            raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
+        if x.data_ptr() % 16:
+            raise ValueError("x must be 16-byte aligned")
+        _plan(x, groups)
+    except ValueError as e:
+        if x.device.type == "cuda":
+            raise ValueError(f"kernel 8 does not take this GroupNorm of {groups} groups over "
+                             f"{x.dtype} {tuple(x.shape)} strides {x.stride()}: {e}") from e
         return False
     return True
 
@@ -114,12 +139,14 @@ def group_norm_silu(
     ``silu``, in x's dtype and layout. No gradient flows through it.
 
     On a CUDA tensor this is one launch of the kernel (and raises if it
-    cannot); on a CPU tensor it runs the plain code."""
-    plan = _check(x, weight, bias, groups)
+    cannot), with a copy each way where a channels-last x runs as NCHW; on
+    a CPU tensor it runs the plain code."""
+    plan, nhwc = _check(x, weight, bias, groups)
     if x.device.type == "cpu":
         y = gn_primal(x, weight, bias, groups, eps)[0]
         return F.silu(y) if silu else y
     b, c, h, w = x.shape
+    xk = x if nhwc else x.contiguous()
     if not _entry:
         from ._build import load
 
@@ -128,18 +155,18 @@ def group_norm_silu(
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _entry.append(fn)
-    y = torch.empty_like(x)
+    y = torch.empty_like(xk)
     with torch.cuda.device(x.device):
-        err = _entry[0](x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        err = _entry[0](xk.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
                         b, c, groups, h * w, plan.cluster, plan.share, plan.chunk,
                         _DTYPE_CODES[x.dtype], _DTYPE_CODES[weight.dtype],
-                        int(not x.is_contiguous()), int(silu), eps,
+                        int(nhwc), int(silu), eps,
                         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gn_fwd launch failed: cudaError {err}")
     group_norm_silu.launches += 1
     group_norm_silu.silu_launches += int(silu)
-    return y
+    return y if xk is x else y.contiguous(memory_format=torch.channels_last)
 
 
 group_norm_silu.launches = 0

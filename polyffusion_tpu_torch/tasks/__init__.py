@@ -6,3 +6,4 @@ from .chd_8bar import Chd8BarTask  # noqa: F401
 from .ddpm import DDPMTask  # noqa: F401
 from .pnotree_vae import PnoTreeVAETask  # noqa: F401
 from .sdf import SDFTask  # noqa: F401
+from .sdxl import SDXLTask  # noqa: F401

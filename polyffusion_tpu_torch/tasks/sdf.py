@@ -244,6 +244,11 @@ class SDFTask:
         return _dropped(cond, drop) if mix else cond
 
     @staticmethod
+    def uncond_condition(cond: torch.Tensor) -> torch.Tensor:
+        """The CFG unconditional condition of ``cond``: -1s of its shape."""
+        return -torch.ones_like(cond)
+
+    @staticmethod
     def draw_drop(generator: torch.Generator) -> torch.Tensor:
         return torch.rand((), generator=generator, device=generator.device) < CFG_DROP
 

@@ -100,11 +100,12 @@ def _jax_and_port(cfg, seed, hw):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_unet_inference_mode_equals_autograd_and_jax(on_cpu, seed):
-    """Under ``inference_mode`` the UNet's GroupNorms that the plan holds go
-    to ``group_norm_silu`` (the SiLU inside at the ResBlock sites and the
-    head; at these widths the channels-last sites have too few channels a
-    group), and the output equals the autograd forward's bit for bit; both
-    match the JAX UNet within tests/test_unet_parity.py's tolerance."""
+    """Under ``inference_mode`` every GroupNorm of the UNet goes to
+    ``group_norm_silu`` (the SiLU inside at the ResBlock sites and the head;
+    at these widths the channels-last sites have too few channels a group
+    for the channels-last kernel and run as NCHW), and the output equals
+    the autograd forward's bit for bit; both match the JAX UNet within
+    tests/test_unet_parity.py's tolerance."""
     jm, params, tm = _jax_and_port(TINY, seed, 16)
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((2, 2, 16, 16), dtype=np.float32)
@@ -114,7 +115,7 @@ def test_unet_inference_mode_equals_autograd_and_jax(on_cpu, seed):
     with torch.inference_mode():
         fast = tm(*args)
     n_norms = sum(isinstance(m, GroupNorm32) for m in tm.modules())
-    assert 0 < sum(silu for _, silu in on_cpu) < len(on_cpu) < n_norms
+    assert 0 < sum(silu for _, silu in on_cpu) < len(on_cpu) == n_norms
     del on_cpu[:]
     slow = tm(*args)
     assert slow.requires_grad and on_cpu == []
@@ -158,9 +159,9 @@ def test_autograd_keeps_group_norm_affine(on_cpu):
 
 @pytest.mark.parametrize("shape,groups,layout", [
     ((1, 32, 3, 5), 32, "nchw"),          # H * W not a multiple of 8
-    ((1, 4096, 8, 8), 32, "nchw"),        # 128 channels a group
+    ((1, 8192, 8, 8), 32, "nchw"),        # 256 channels a group
     ((1, 64, 128, 128), 1, "nchw"),       # a span no cluster holds (4 MB)
-    ((1, 96, 8, 8), 32, "channels_last"),  # 3 channels a group: no whole 16-byte vector
+    ((1, 8192, 8, 8), 32, "channels_last"),  # 256 channels a group: too wide in either layout
     ((1, 64, 8, 8), 32, "strided"),       # neither layout
 ])
 def test_dispatch_keeps_the_plain_path_where_the_plan_refuses(on_cpu, shape, groups, layout):
@@ -177,6 +178,27 @@ def test_dispatch_keeps_the_plain_path_where_the_plan_refuses(on_cpu, shape, gro
     assert torch.equal(y, gn_primal(x, gn.weight, gn.bias, groups, 1e-5)[0])
     with pytest.raises(ValueError):
         group_norm_silu(x, gn.weight, gn.bias, groups, 1e-5)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 512, 32, 32), torch.float32),   # an item of 2 MB: no cluster holds it
+    ((1, 96, 8, 8), torch.bfloat16),     # 3 channels a group: no whole 16-byte vector
+])
+def test_channels_last_beyond_its_plan_runs_as_nchw(on_cpu, shape, dtype):
+    """A channels-last x that the channels-last kernel cannot take, but the
+    NCHW one can, goes to the kernel (as an NCHW copy on the card), and y
+    keeps x's layout."""
+    x = torch.randn(shape).to(dtype).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        gn_fwd_plan(*shape[1:], dtype, 32, True)
+    plan, nhwc = gn_fwd._plan(x, 32)
+    assert not nhwc and plan == gn_fwd_plan(*shape[1:], dtype, 32, False)
+    gn = GroupNorm32(shape[1]).to(dtype)
+    with torch.inference_mode():
+        assert kernel_takes(x, 32)
+        y = gn(x)
+    assert len(on_cpu) == 1 and y.stride() == x.stride()
+    assert torch.equal(y, gn_primal(x, gn.weight, gn.bias, 32, 1e-5)[0])
 
 
 def test_kernel_takes_no_cpu_tensor_by_default():

@@ -81,6 +81,10 @@ def _within(got, want, atol, rtol):
         (2, 512, 2, 128, torch.bfloat16, 2e-3, 2**-6),
         (2, 512, 2, 128, torch.float32, 1e-5, 0.0),
         (3, 64, 3, 64, torch.float32, 1e-5, 0.0),
+        # sdxl_base's self-attentions at its CFG batch of 8: row strides 640
+        # and 1280
+        (8, 4096, 10, 64, torch.bfloat16, 2e-3, 2**-6),
+        (8, 1024, 20, 64, torch.bfloat16, 2e-3, 2**-6),
     ],
 )
 def test_cuda_kernel_matches_plain(b, t, h, d, dtype, atol, rtol):
@@ -861,18 +865,12 @@ def test_cuda_gn_fwd_matches_plain(site, dtype, silu):
     """Kernel 8 against its plain version at the sdf_chd8bar sites. With
     exact statistics (x in eighths) every element is bit-equal. On Gaussian
     x, whose fp32 sums the two take in other orders, within ``GN_FWD_ULPS``
-    (``_ulps``), and in bf16 at least 99.9 % bit-equal. A shape the plan
-    refuses (fp32 (512, 32, 32) channels-last: 2 MB an item) raises."""
+    (``_ulps``), and in bf16 at least 99.9 % bit-equal. A channels-last
+    shape the channels-last plan refuses (fp32 (512, 32, 32): 2 MB an item)
+    runs the NCHW kernel on a copy, and y comes back channels-last."""
     c, h, w, cl = site
     g = _card()
     eps = 1e-6 if (c, h, w, cl) == (256, 32, 32, False) else 1e-5
-    try:
-        gn_fwd_plan(c, h, w, dtype, 32, cl)
-    except ValueError:
-        x, weight, bias = _gn_fwd_inputs(g, 2, c, h, w, dtype, cl, True)
-        with pytest.raises(ValueError, match="does not fit"):
-            group_norm_silu(x, weight, bias, 32, eps, silu)
-        return
     for exact in (True, False):
         x, weight, bias = _gn_fwd_inputs(g, 2, c, h, w, dtype, cl, exact)
         before = (group_norm_silu.launches, group_norm_silu.silu_launches)
@@ -908,6 +906,66 @@ def test_cuda_gn_fwd_family_shapes_match_plain(b, c, h, w, groups, silu):
         else:
             ulps = _ulps(got, want, x, weight, bias, groups, 1e-5).max().item()
             assert ulps <= GN_FWD_ULPS[torch.float32], ulps
+
+
+# sdxl_base's GroupNorm shapes at its CFG batch of 8, NCHW as its UNet holds
+# them: (C, H, W, the plan's cluster); 30 channels a group at 128^2 is a span
+# of 960 KB on eight CTAs, the decoder's 2560-channel inputs 80 a group
+SDXL_GN_FWD_SITES = [
+    (320, 128, 128, 8), (320, 64, 64, 2), (640, 128, 128, 8), (640, 64, 64, 4),
+    (640, 32, 32, 1), (960, 128, 128, 8), (960, 64, 64, 4), (1280, 64, 64, 8),
+    (1280, 32, 32, 2), (1920, 64, 64, 8), (1920, 32, 32, 2), (2560, 32, 32, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [False, True], ids=["", "silu"])
+@pytest.mark.parametrize("site", SDXL_GN_FWD_SITES, ids=lambda s: "x".join(map(str, s[:3])))
+def test_cuda_gn_fwd_sdxl_shapes_match_plain(site, silu):
+    """Kernel 8 at every sdxl_base GroupNorm shape, bf16, batch 8, one
+    launch a call: exact statistics bit-equal, Gaussian x within
+    ``GN_FWD_ULPS`` and at least 99.9 % bit-equal."""
+    c, h, w, k = site
+    g = _card()
+    assert gn_fwd_plan(c, h, w, torch.bfloat16, 32, False).cluster == k
+    for exact in (True, False):
+        x, weight, bias = _gn_fwd_inputs(g, 8, c, h, w, torch.bfloat16, False, exact)
+        before = (group_norm_silu.launches, group_norm_silu.silu_launches)
+        got = group_norm_silu(x, weight, bias, 32, 1e-5, silu)
+        torch.cuda.synchronize()
+        assert (group_norm_silu.launches, group_norm_silu.silu_launches) == (
+            before[0] + 1, before[1] + int(silu))
+        want = _gn_fwd_plain(x, weight, bias, 32, 1e-5, silu)
+        if exact:
+            assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+            continue
+        ulps = _ulps(got, want, x, weight, bias, 32, 1e-5).max().item()
+        equal = (got == want).float().mean().item()
+        assert ulps <= GN_FWD_ULPS[torch.bfloat16] and equal >= 0.999, (ulps, equal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,layout", [
+    ((1, 8192, 8, 8), 32, "nchw"),        # 256 channels a group
+    ((1, 64, 128, 128), 1, "nchw"),       # a span no cluster holds (4 MB)
+    ((1, 64, 8, 8), 32, "strided"),       # neither layout
+])
+def test_cuda_group_norm_raises_where_kernel_8_cannot_take_it(shape, groups, layout):
+    """Outside autograd a model's GroupNorm on the card is kernel 8 or an
+    error, never the plain code; under autograd it is the plain forward."""
+    from polyffusion_tpu_torch.models.unet import GroupNorm32
+
+    g = _card()
+    x = torch.randn(shape, device="cuda", generator=g)
+    if layout == "strided":
+        x = torch.randn(shape[0], shape[1], shape[2], 2 * shape[3], device="cuda",
+                        generator=g)[..., ::2]
+    gn = GroupNorm32(shape[1], groups=groups).cuda()
+    before = group_norm_silu.launches
+    with torch.inference_mode(), pytest.raises(ValueError, match="kernel 8 does not take"):
+        gn(x)
+    assert group_norm_silu.launches == before
+    assert gn(x).grad_fn is not None
 
 
 @pytest.mark.cuda
